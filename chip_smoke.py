@@ -9,24 +9,43 @@ Phases, each printing one line with its elapsed seconds (any failure
 raises, so the exit code is non-zero):
 
 1. the card's ``name, power.limit`` line from ``nvidia-smi``;
-2. build the synthesis-spectrum kernel with plain ``nvcc`` and load it;
-3. hold the kernel to its plain PyTorch version on the card at every
-   batch rung of the service (the shapes of the main path), and time the
-   kernel, the plain version and the PyTorch library form with CUDA
-   events;
-4. render three flagship notes (``runs/flagship_r4``, bf16, stage 6)
+2. build the three kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
+   critic block) with plain ``nvcc``, one process each, all at once, and
+   print their ``ptxas`` lines;
+3. hold K1 to its plain PyTorch version on the card at every batch rung
+   of the service, and time the kernel, the plain version and the
+   PyTorch library form with CUDA events;
+4. hold K2 to ``F.conv2d`` (TF32 off) at every shape the stage-6 training
+   step gives it, in bf16 and f32: the forward, and dx and dw through
+   autograd; a second-order (gradient-penalty) gradient at a small shape;
+   time each shape in bf16;
+5. hold K3 to the literal chain at the flagship shape [8, 128, 1024, 64]
+   -> 128 in bf16 and f32, with first- and second-order gradients at
+   batch 1, and time it in bf16;
+6. render three flagship notes (``runs/flagship_r4``, bf16, stage 6)
    through the seeded sampler, and one note in float32 on the card
    against the same note on the CPU;
-5. the main path: the synthesis service with the flagship weights behind
-   its HTTP server, answering 4 concurrent requests, then shut down;
-6. one JSON line with every kernel's launches on the main path, error and
-   times; the total seconds; and the result line.
+7. serving: the synthesis service with the flagship weights behind its
+   HTTP server, answering 4 concurrent requests, then shut down (K1's
+   launches are counted over this phase);
+8. training: the flagship config (``Config.released()``,
+   ``conv_kernel="pallas"``, ``dblock_kernel="pallas"``) at stage 6,
+   batch 8, G and EMA from ``ema.npz``, D from a seeded init, Adam fresh:
+   one warm-up step, then 3 steps timed with CUDA events, with K2's and
+   K3's launches counted over the 3 steps; the metrics must be finite and
+   both networks must move;
+9. the same step in float32 from one state and one injected noise, once
+   with the kernels and once with ``conv_kernel="xla"`` /
+   ``dblock_kernel="xla"``, metric by metric;
+10. one JSON line with every kernel's launches on its path, error and
+    times; the total seconds; and the result line.
 
 The script exits non-zero, printing no result, where CUDA is not
 available or the port is not beside it. It writes nothing outside
 ``build/``.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -38,8 +57,22 @@ import urllib.request
 ROOT = os.path.dirname(os.path.abspath(__file__))
 FLAGSHIP = os.path.join(ROOT, "runs", "flagship_r4")
 F32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
+BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
+KERNELS = ("synthesis_spectrum", "conv3x3", "dblock")
+# (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
+# the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
+# conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
+K2_SHAPES = [
+    (8, 64, 512, 128, 256),   # D block_5 conv1 (the headline shape)
+    (8, 64, 512, 256, 128),   # its input gradient
+    (8, 64, 512, 128, 128),   # D block_5 conv0, G block_5 conv1
+    (8, 32, 256, 256, 256),   # D block_4 conv0/conv1, G block_4 conv1
+    (8, 16, 128, 256, 256),   # D block_3 conv0/conv1, G block_3 conv1
+]
+K3_SHAPE = (8, 128, 1024, 128)   # (B, H, W, C1): D block_6
+TRAIN_STEPS = 3
 T0 = time.perf_counter()
 
 
@@ -161,6 +194,315 @@ def check_synthesis_kernel(device, config):
         }}), flush=True)
         result.update(times)   # the last rung's, B=16, are kept
     return result
+
+
+def close_err(got, want):
+    """(max |got - want|, max(1, max |want|)): a check passes when the first
+    is at most its bar times the second."""
+    got, want = got.detach().float(), want.detach().float()
+    err = float((got - want).abs().max())
+    return err, max(1.0, float(want.abs().max()))
+
+
+def require(err, ref, bar, what):
+    if not err <= bar * ref:
+        raise AssertionError(f"{what}: max abs err {err:.3e} > {bar} * "
+                             f"{ref:.3e}")
+
+
+def randn(shape, device, seed, dtype, scale=1.0):
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def bound(flops, nbytes, peak):
+    """(bound_ms, bound_by): the larger of operations over the peak rate
+    and bytes over the HBM rate."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+# Bars: f32 within 1e-4 of the output's scale (tests/test_pallas_conv.py);
+# bf16 within 3e-2, since both sides accumulate in f32 and round once to
+# bf16 (an ulp is 2**-8 of the value) after sums taken in other orders.
+# dw sums B*H*W products, so its f32 bar is 1e-3.
+CONV_BARS = {"float32": (1e-4, 1e-4, 1e-3), "bfloat16": (3e-2, 3e-2, 3e-2)}
+
+
+def check_conv_kernel(device):
+    """K2 against F.conv2d at every shape of the training step, both
+    types; the second order at a small shape; bf16 times."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_plain, conv3x3_same
+
+    result = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "shapes": []}
+    for shape in K2_SHAPES:
+        b, h, w, c_in, c_out = shape
+        row = {"shape": list(shape)}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            bars = CONV_BARS[name]
+            x = randn((b, h, w, c_in), device, 1, dtype).requires_grad_()
+            wt = randn((c_out, c_in, 3, 3), device, 2, dtype,
+                       (9 * c_in) ** -0.5).requires_grad_()
+            r = randn((b, h, w, c_out), device, 3, dtype)
+            y = conv3x3_same(x, wt)
+            gx, gw = torch.autograd.grad((y * r).sum(), (x, wt))
+            y_p = conv3x3_plain(x, wt)
+            gx_p, gw_p = torch.autograd.grad((y_p * r).sum(), (x, wt))
+            torch.cuda.synchronize()
+            errs = {}
+            for what, got, want, bar in (("y", y, y_p, bars[0]),
+                                         ("dx", gx, gx_p, bars[1]),
+                                         ("dw", gw, gw_p, bars[2])):
+                err, ref = close_err(got, want)
+                require(err, ref, bar, f"K2 {name} {shape} {what}")
+                errs[what] = err
+            row[name] = errs
+            key = "max_abs_err" if name == "bfloat16" else "max_abs_err_f32"
+            result[key] = max(result[key], errs["y"])
+            if dtype == torch.bfloat16:
+                xd, wd = x.detach(), wt.detach()
+                nbytes = 2.0 * (b * h * w * (c_in + c_out) + 9 * c_in * c_out)
+                bound_ms, bound_by = bound(2.0 * b * h * w * 9 * c_in * c_out,
+                                           nbytes, BF16_PEAK_FLOPS)
+                row.update(
+                    ms=cuda_ms(lambda: conv3x3_same(xd, wd), iters=20),
+                    plain_ms=cuda_ms(lambda: conv3x3_plain(xd, wd), iters=20),
+                    library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
+                        xd.permute(0, 3, 1, 2), wd, padding=1), iters=20),
+                    bound_ms=bound_ms, bound_by=bound_by)
+            del x, wt, r, y, gx, gw, y_p, gx_p, gw_p
+        print(json.dumps({"k2_check": row}), flush=True)
+        result["shapes"].append(row)
+
+    # The WGAN-GP shape: d/dw of ||d(sum conv(x, w) r)/dx||^2 (f32, 1e-3).
+    x = randn((2, 8, 16, 16), device, 4, torch.float32).requires_grad_()
+    r = randn((2, 8, 16, 24), device, 5, torch.float32)
+    wt = randn((24, 16, 3, 3), device, 6, torch.float32, 0.1)
+    wt.requires_grad_()
+
+    def gp(fn):
+        gx = torch.autograd.grad((fn(x, wt) * r).sum(), x,
+                                 create_graph=True)[0]
+        return torch.autograd.grad((gx ** 2).sum(), wt)[0]
+
+    err, ref = close_err(gp(conv3x3_same), gp(conv3x3_plain))
+    require(err, ref, 1e-3, "K2 second order")
+    result["second_order_err"] = err
+    result.update({k: result["shapes"][0][k] for k in
+                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    result["shape"] = result["shapes"][0]["shape"]
+    return result
+
+
+def check_dblock_kernel(device):
+    """K3 against the literal chain at the flagship shape, both types;
+    first and second order at batch 1; bf16 times."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.dblock import dblock_plain, fused_dblock
+
+    b, h, w, c1 = K3_SHAPE
+    result = {"shape": [b, h, w, 64, c1]}
+
+    def inputs(batch, dtype, seed=10):
+        return [randn((batch, h, w, 64), device, seed, dtype),
+                randn((64, 64, 3, 3), device, seed + 1, torch.float32, 0.06),
+                randn((64,), device, seed + 2, torch.float32, 0.1),
+                randn((c1, 64, 3, 3), device, seed + 3, torch.float32, 0.06),
+                randn((c1,), device, seed + 4, torch.float32, 0.1)]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        bar = 1e-5 if dtype == torch.float32 else 3e-2
+        gbar = 1e-4 if dtype == torch.float32 else 3e-2
+        args = inputs(b, dtype)
+        err, ref = close_err(fused_dblock(*args, 0.2),
+                             dblock_plain(*args, 0.2))
+        require(err, ref, bar, f"K3 {name} forward")
+        row = {"y": err}
+        if dtype == torch.bfloat16:
+            nbytes = 2.0 * (b * h * w * 64 + b * h * w // 4 * c1
+                            + 9 * 64 * (64 + c1) + 64 + c1)
+            bound_ms, bound_by = bound(
+                2.0 * b * h * w * 9 * 64 * (64 + c1), nbytes, BF16_PEAK_FLOPS)
+            result.update(
+                ms=cuda_ms(lambda: fused_dblock(*args, 0.2), iters=20),
+                plain_ms=cuda_ms(lambda: dblock_plain(*args, 0.2), iters=20),
+                library_ms=cuda_ms(lambda: dblock_plain(*args, 0.2),
+                                   iters=20),
+                bound_ms=bound_ms, bound_by=bound_by)
+        del args
+        # first order (fixed cotangent) and the GP second order, batch 1
+        small = [a.requires_grad_() for a in inputs(1, dtype, seed=30)]
+        r = randn((1, h // 2, w // 2, c1), device, 40, dtype)
+        g_k = torch.autograd.grad((fused_dblock(*small, 0.2) * r).sum(), small)
+        g_p = torch.autograd.grad((dblock_plain(*small, 0.2) * r).sum(), small)
+        row["grad"] = 0.0
+        for i, (a, b_) in enumerate(zip(g_k, g_p)):
+            err, ref = close_err(a, b_)
+            require(err, ref, gbar, f"K3 {name} first order, input {i}")
+            row["grad"] = max(row["grad"], err)
+
+        def gp(fn):
+            gx = torch.autograd.grad(fn(*small, 0.2).sum(), small[0],
+                                     create_graph=True)[0]
+            return torch.autograd.grad((gx.float() ** 2).sum(), small[1])[0]
+
+        err, ref = close_err(gp(fused_dblock), gp(dblock_plain))
+        require(err, ref, gbar, f"K3 {name} second order")
+        row["second_order"] = err
+        result[name] = row
+    torch.cuda.synchronize()
+    result["max_abs_err"] = result["bfloat16"]["y"]
+    result["max_abs_err_f32"] = result["float32"]["y"]
+    print(json.dumps({"k3_check": result}), flush=True)
+    return result
+
+
+def training_config(dtype=None, kernels="pallas"):
+    """The flagship's config after the release step, with the kernels
+    switched on (or off) and, optionally, another compute type."""
+    from gansynth_tpu_torch.cli import run_config
+
+    model = {"conv_kernel": kernels, "dblock_kernel": kernels}
+    if dtype is not None:
+        model["compute_dtype"] = dtype
+    return run_config(FLAGSHIP).released().with_overrides({"model": model})
+
+
+def training_setup(config, device):
+    """The state (G and EMA from ``ema.npz``, D seeded, Adam fresh), the
+    stage and alpha at the archive's step, and a batch of fixture notes."""
+    import torch
+
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.schedule import schedule_from_config
+    from gansynth_tpu_torch.train.state import state_from_ema
+
+    state = state_from_ema(config, os.path.join(FLAGSHIP, "ema.npz"), device)
+    stage, alpha = schedule_from_config(config).stage_and_alpha(state.step)
+    m = config.model
+    waves, pitches = note_batch(config.train.batch_for_stage(stage),
+                                m.pitch_min, m.pitch_max)
+    return (state, stage, alpha, torch.from_numpy(waves).to(device),
+            torch.from_numpy(pitches).to(device))
+
+
+def flat_params(module):
+    import torch
+
+    return torch.cat([p.detach().float().reshape(-1)
+                      for p in module.parameters()])
+
+
+def train_steps(device):
+    """The slice-2 path: 1 warm-up step, then TRAIN_STEPS timed steps with
+    K2's and K3's launches counted."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.train.step import make_train_step
+
+    config = training_config()
+    state, stage, alpha, waves, pitches = training_setup(config, device)
+    step_fn = make_train_step(config, stage)
+    gen = torch.Generator(device=device).manual_seed(0)
+    step_fn(state, waves, pitches, alpha, generator=gen)
+    torch.cuda.synchronize()
+    g0, d0 = flat_params(state.g), flat_params(state.d)
+
+    conv3x3_same.launches.update(forward=0, input_grad=0)
+    fused_dblock.launches = 0
+    times, metrics = [], []
+    for _ in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, m = step_fn(state, waves, pitches, alpha, generator=gen)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        metrics.append({k: float(v) for k, v in m.items()})
+    launches = {"conv3x3_forward": conv3x3_same.launches["forward"],
+                "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
+                "dblock": fused_dblock.launches}
+    bad = [k for k, v in launches.items() if v == 0]
+    if bad:
+        raise AssertionError(f"the training step never launched {bad}")
+    for m in metrics:
+        if not all(math.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite metrics: {m}")
+    g_move = float((flat_params(state.g) - g0).abs().max())
+    d_move = float((flat_params(state.d) - d0).abs().max())
+    if not (g_move > 0 and d_move > 0):
+        raise AssertionError(f"parameters did not move: G {g_move}, "
+                             f"D {d_move}")
+    out = {"stage": stage, "alpha": alpha, "batch": int(waves.shape[0]),
+           "compute_dtype": config.model.compute_dtype,
+           "step_ms": times, "mean_step_ms": sum(times) / len(times),
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "g_max_move": g_move, "d_max_move": d_move,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "metrics": metrics}
+    print(json.dumps({"train": out}), flush=True)
+    return out
+
+
+STEP_BAR = 1e-3   # |kernels - plain| <= STEP_BAR * max(1, |plain|) per metric
+
+
+def kernels_vs_plain_step(device):
+    """One float32 step from one state and one injected noise, with the
+    kernels and with the plain lowerings; every metric within STEP_BAR."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.train.step import make_train_step
+
+    results = {}
+    for kernels in ("pallas", "xla"):
+        config = training_config("float32", kernels)
+        state, stage, alpha, waves, pitches = training_setup(config, device)
+        batch, latent = waves.shape[0], config.model.latent_dim
+        gen = torch.Generator(device=device).manual_seed(123)
+        noise = dict(
+            z_d=torch.randn((batch, latent), generator=gen, device=device),
+            u=torch.rand((batch, 1, 1, 1), generator=gen, device=device),
+            z_g=torch.randn((batch, latent), generator=gen, device=device))
+        before = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
+        _, m = make_train_step(config, stage)(state, waves, pitches, alpha,
+                                              **noise)
+        torch.cuda.synchronize()
+        after = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
+        launched = after[0] > before[0] and after[1] > before[1]
+        if launched != (kernels == "pallas"):
+            raise AssertionError(f"{kernels} step: kernel launches "
+                                 f"{before} -> {after}")
+        results[kernels] = ({k: float(v) for k, v in m.items()},
+                            flat_params(state.d), flat_params(state.g))
+        del state
+    (mk, dk, gk), (mx, dx, gx) = results["pallas"], results["xla"]
+    errs = {k: abs(mk[k] - mx[k]) for k in mx}
+    worst = max(errs[k] / max(1.0, abs(mx[k])) for k in mx)
+    if not worst <= STEP_BAR:
+        raise AssertionError(f"kernels vs plain step: {errs} (bar {STEP_BAR})")
+    out = {"metrics_kernels": mk, "metrics_plain": mx, "abs_err": errs,
+           "worst_scaled_err": worst, "bar": STEP_BAR,
+           "d_param_max_diff": float((dk - dx).abs().max()),
+           "g_param_max_diff": float((gk - gx).abs().max())}
+    print(json.dumps({"step_kernels_vs_plain": out}), flush=True)
+    return out
 
 
 def render_flagship(device, config, generator, stage):
@@ -295,13 +637,15 @@ def main() -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t = time.perf_counter()
-    lib = _build.load_library("synthesis_spectrum")
-    print(f"built {lib.name}: {lib.build_seconds:.2f}s -> "
-          f"{os.path.relpath(lib.path, ROOT)}", flush=True)
-    for line in lib.log.splitlines():
-        if "ptxas" in line:
-            print(f"  {line.strip()}", flush=True)
-    phase("build", t, lib.name)
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        libs = list(pool.map(_build.load_library, KERNELS))
+    for lib in libs:
+        print(f"built {lib.name}: {lib.build_seconds:.2f}s -> "
+              f"{os.path.relpath(lib.path, ROOT)}", flush=True)
+        for line in lib.log.splitlines():
+            if "ptxas" in line and ("Used" in line or "spill" in line):
+                print(f"  {line.strip()}", flush=True)
+    phase("build", t, ", ".join(KERNELS))
 
     config = run_config(FLAGSHIP)
     t = time.perf_counter()
@@ -311,6 +655,23 @@ def main() -> int:
           f"B=16 kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
           f"library {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
           f"({k1['bound_by']}) ({card})")
+
+    t = time.perf_counter()
+    k2 = check_conv_kernel(device)
+    phase("K2 vs plain", t, f"bf16 max abs err {k2['max_abs_err']:.3e}, "
+          f"f32 {k2['max_abs_err_f32']:.3e}, second order "
+          f"{k2['second_order_err']:.3e} (bars in CONV_BARS); "
+          f"{k2['shape']} kernel {k2['ms']:.4f} ms, plain "
+          f"{k2['plain_ms']:.4f} ms, library {k2['library_ms']:.4f} ms, "
+          f"bound {k2['bound_ms']:.4f} ms ({k2['bound_by']}) ({card})")
+
+    t = time.perf_counter()
+    k3 = check_dblock_kernel(device)
+    phase("K3 vs plain", t, f"bf16 max abs err {k3['max_abs_err']:.3e}, "
+          f"f32 {k3['max_abs_err_f32']:.3e}; {k3['shape']} kernel "
+          f"{k3['ms']:.4f} ms, plain {k3['plain_ms']:.4f} ms, library "
+          f"{k3['library_ms']:.4f} ms, bound {k3['bound_ms']:.4f} ms "
+          f"({k3['bound_by']}) ({card})")
 
     t = time.perf_counter()
     generator, step, stage = load_ema_generator(
@@ -332,6 +693,23 @@ def main() -> int:
           f"({health['coalesced_batches']} coalesced); warm latency "
           f"{health['warm_latency_s']}; K1 launches {launches}")
 
+    del generator
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train = train_steps(device)
+    phase("train", t, f"stage {train['stage']} alpha {train['alpha']} batch "
+          f"{train['batch']} {train['compute_dtype']}: {TRAIN_STEPS} steps, "
+          f"mean {train['mean_step_ms']:.1f} ms/step; launches per step "
+          f"{train['launches_per_step']} ({card})")
+
+    t = time.perf_counter()
+    cmp = kernels_vs_plain_step(device)
+    phase("f32 step, kernels vs plain", t, f"worst metric error "
+          f"{cmp['worst_scaled_err']:.3e} of max(1, |metric|) (bar "
+          f"{STEP_BAR})")
+
+    conv_launches = (train["launches"]["conv3x3_forward"]
+                     + train["launches"]["conv3x3_input_grad"])
     kernels = [{
         "name": "synthesis_spectrum",
         "route": "cuda",
@@ -344,6 +722,36 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+    }, {
+        "name": "conv3x3_same",
+        "route": "cuda",
+        "source": "gansynth_tpu_torch/kernels/csrc/conv3x3.cu",
+        "replaces": "gansynth_tpu/kernels/pallas_conv.py:208",
+        "launches": conv_launches,
+        "launches_forward": train["launches"]["conv3x3_forward"],
+        "launches_input_grad": train["launches"]["conv3x3_input_grad"],
+        "max_abs_err": k2["max_abs_err"],
+        "max_abs_err_f32": k2["max_abs_err_f32"],
+        "shape": k2["shape"],
+        "ms": k2["ms"],
+        "plain_ms": k2["plain_ms"],
+        "bound_ms": k2["bound_ms"],
+        "bound_by": k2["bound_by"],
+        "library_ms": k2["library_ms"],
+    }, {
+        "name": "fused_dblock",
+        "route": "cuda",
+        "source": "gansynth_tpu_torch/kernels/csrc/dblock.cu",
+        "replaces": "gansynth_tpu/kernels/pallas_dblock.py:198",
+        "launches": train["launches"]["dblock"],
+        "max_abs_err": k3["max_abs_err"],
+        "max_abs_err_f32": k3["max_abs_err_f32"],
+        "shape": k3["shape"],
+        "ms": k3["ms"],
+        "plain_ms": k3["plain_ms"],
+        "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"],
+        "library_ms": k3["library_ms"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total seconds: {time.perf_counter() - T0:.2f}", flush=True)

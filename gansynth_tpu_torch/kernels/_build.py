@@ -46,6 +46,7 @@ class KernelLibrary:
 
 
 _loaded: Dict[str, KernelLibrary] = {}
+_locks: Dict[str, threading.Lock] = {}
 _lock = threading.Lock()
 
 
@@ -90,8 +91,12 @@ def _compile(name: str) -> KernelLibrary:
 
 
 def load_library(name: str) -> KernelLibrary:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use. Each
+    source has its own lock, so threads that load different libraries
+    build them at the same time."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name not in _loaded:
             _loaded[name] = _compile(name)
         return _loaded[name]

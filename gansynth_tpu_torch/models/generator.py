@@ -32,20 +32,28 @@ from gansynth_tpu_torch.utils.config import ModelConfig
 
 class GeneratorBlock(nn.Module):
     """One trunk stage: [upsample x2 ->] two 3x3 eq-LR convs, each followed
-    by LeakyReLU and pixel norm."""
+    by LeakyReLU and pixel norm. ``conv_kernel`` goes to both stride-1 3x3
+    convs (the up-conv stays on its own lowering, as in the reference)."""
 
     def __init__(self, in_channels: int, features: int, upsample: bool = True,
                  lrelu_slope: float = 0.2, pn_eps: float = 1e-8,
-                 compute_dtype: str = "float32",
+                 compute_dtype: str = "float32", conv_kernel: str = "xla",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.lrelu_slope = lrelu_slope
         self.pn_eps = pn_eps
-        conv0 = EqualizedUpConv if upsample else EqualizedConv
-        self.conv0 = conv0(in_channels, features, compute_dtype=compute_dtype,
-                           generator=generator)
+        if upsample:
+            self.conv0 = EqualizedUpConv(in_channels, features,
+                                         compute_dtype=compute_dtype,
+                                         generator=generator)
+        else:
+            self.conv0 = EqualizedConv(in_channels, features,
+                                       compute_dtype=compute_dtype,
+                                       conv_kernel=conv_kernel,
+                                       generator=generator)
         self.conv1 = EqualizedConv(features, features,
                                    compute_dtype=compute_dtype,
+                                   conv_kernel=conv_kernel,
                                    generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -73,7 +81,7 @@ class Generator(nn.Module):
             GeneratorBlock(ch(max(i - 1, 0)), ch(i), upsample=i > 0,
                            lrelu_slope=cfg.leaky_relu_slope,
                            pn_eps=cfg.pixelnorm_eps, compute_dtype=cdt,
-                           generator=generator)
+                           conv_kernel=cfg.conv_kernel, generator=generator)
             for i in range(cfg.num_stages)
         )
         self.to_rgb = nn.ModuleList(

@@ -21,7 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from gansynth_tpu_torch.utils.device import dtype_of
+from gansynth_tpu_torch.kernels.conv import conv3x3_eligible, conv3x3_same
+from gansynth_tpu_torch.utils.device import dtype_of, slope_in
 
 
 def he_scale(fan_in: int, gain: float) -> float:
@@ -58,18 +59,22 @@ class EqualizedConv(nn.Module):
     """SAME-padded stride-1 conv with runtime He scaling, NHWC in and out.
 
     A 1x1 conv with a fan-in of at most 4 channels is a broadcast
-    multiply-add, as in the reference (``layers.py:103-107``).
+    multiply-add, as in the reference (``layers.py:103-107``). With
+    ``conv_kernel="pallas"`` a 3x3 conv whose shape passes
+    ``conv3x3_eligible`` runs through K2 (``kernels.conv.conv3x3_same``),
+    as the reference routes it to its Pallas kernel (``layers.py:108-113``).
     """
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: Tuple[int, int] = (3, 3),
                  gain: float = np.sqrt(2.0), use_bias: bool = True,
-                 compute_dtype: str = "float32",
+                 compute_dtype: str = "float32", conv_kernel: str = "xla",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.gain = gain
         self.compute_dtype = dtype_of(compute_dtype)
+        self.conv_kernel = conv_kernel
         self.weight = _normal((features, in_channels) + self.kernel_size,
                               generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
@@ -82,6 +87,9 @@ class EqualizedConv(nn.Module):
         xc = x.to(cdt)
         if (kh, kw) == (1, 1) and c_in <= 4:
             y = sum(xc[..., i:i + 1] * w[:, i, 0, 0] for i in range(c_in))
+        elif self.conv_kernel == "pallas" and conv3x3_eligible(
+                xc.shape, (kh, kw, c_in, w.shape[0])):
+            y = conv3x3_same(xc.contiguous(), w)
         else:
             y = F.conv2d(xc.permute(0, 3, 1, 2), w,
                          padding=(kh // 2, kw // 2)).permute(0, 2, 3, 1)
@@ -140,8 +148,56 @@ def pixel_norm(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return (x32 * s).to(x.dtype)
 
 
+def _mbstd_stat(x: torch.Tensor, group_size: int, eps: float) -> torch.Tensor:
+    """The stddev feature map of one batch chunk: [B, H, W, C] -> [B, H, W,
+    1], float32. Sample ``g_idx * (B/g) + m`` carries ``stat[m]``, as in
+    the reference (``layers.py:204-214``)."""
+    b, h, w, c = x.shape
+    g = group_size if (group_size and b % group_size == 0) else b
+    y = x.float().reshape(g, b // g, h, w, c)
+    var = torch.mean(torch.square(y - torch.mean(y, dim=0, keepdim=True)),
+                     dim=0)
+    stat = torch.mean(torch.sqrt(var + eps), dim=(1, 2, 3), keepdim=True)
+    return stat.repeat(g, h, w, 1)
+
+
+def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
+                     num_replicas: int = 1) -> torch.Tensor:
+    """Append one channel of batch-group stddev statistics: [B, H, W, C] ->
+    [B, H, W, C + 1].
+
+    ``num_replicas > 1`` splits the batch into that many contiguous chunks
+    and never groups across them (per-replica statistics); more replicas
+    than samples means whole-batch statistics, as in the reference.
+    """
+    b = x.shape[0]
+    if num_replicas > b:
+        num_replicas = 1
+    if num_replicas <= 1:
+        stat = _mbstd_stat(x, group_size, eps)
+    else:
+        if b % num_replicas:
+            raise ValueError(
+                f"batch {b} must divide num_replicas {num_replicas}")
+        stat = torch.cat([_mbstd_stat(c, group_size, eps)
+                          for c in x.chunk(num_replicas)])
+    return torch.cat([x, stat.to(x.dtype)], dim=-1)
+
+
+def downsample_avg(x: torch.Tensor, factor: int = 2) -> torch.Tensor:
+    """x``factor`` average-pool downsample of an NHWC tensor: the sum over
+    each window, then divided by ``factor**2``, in the input's type."""
+    b, h, w, c = x.shape
+    summed = x.reshape(b, h // factor, factor, w // factor, factor, c).sum(
+        dim=(2, 4))
+    return summed / float(factor * factor)
+
+
 def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
-    return F.leaky_relu(x, negative_slope=slope)
+    """``where(x >= 0, x, slope * x)`` with the slope rounded to x's type,
+    as the reference's ``jax.nn.leaky_relu`` rounds it (see
+    ``utils.device.slope_in``)."""
+    return F.leaky_relu(x, negative_slope=slope_in(x.dtype, slope))
 
 
 def upsample_nearest(x: torch.Tensor, factor: int = 2) -> torch.Tensor:

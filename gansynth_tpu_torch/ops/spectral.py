@@ -1,7 +1,12 @@
-"""The synthesis direction of the spectral library, in PyTorch.
+"""The spectral library, in PyTorch (``gansynth_tpu/ops/spectral.py``).
 
-Counterpart of ``gansynth_tpu/ops/spectral.py`` from the generated mel-IF
-image to the waveform:
+Both directions of the reference:
+
+- analysis (training data): wave [..., 64000] -> pad, frame, periodic
+  Hann, rFFT (or the windowed DFT matmuls), drop DC -> log-magnitude and
+  instantaneous frequency -> through the mel matrix -> the image
+  [..., 128, 1024, 2];
+- synthesis (the generated image):
 
     image [..., 128, 1024, 2]
     -> un-scale ch0, exp, @ mel pseudo-inverse, sqrt       (magnitude)
@@ -10,10 +15,8 @@ image to the waveform:
     -> crop -> wave [..., 64000]
 
 All spectral math stays float32. The numpy constant builders (windows,
-mel matrices, iDFT matrices) are the reference's, built in float64 and
-stored float32; each is moved to a device once and cached.
-
-The analysis direction (``stft``, ``wave_to_image``) is not ported yet.
+mel matrices, DFT and iDFT matrices) are the reference's, built in float64
+and stored float32; each is moved to a device once and cached.
 
 Array layout as in the reference: waves ``[..., time]``, spectrograms
 ``[..., frames, bins]``, images ``[..., frames, bins, 2]`` with channel 0
@@ -33,6 +36,51 @@ from gansynth_tpu_torch.ops.windows import hann_window, inverse_stft_window
 from gansynth_tpu_torch.utils.config import AudioConfig, scale
 
 _PI = np.pi
+
+
+def diff(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Finite difference along ``axis`` (the length shrinks by one)."""
+    n = x.shape[axis]
+    return x.narrow(axis, 1, n - 1) - x.narrow(axis, 0, n - 1)
+
+
+def _wrapped_diff(phase: torch.Tensor, axis: int):
+    """``(dd, ddmod)``: the phase difference along ``axis`` and its value
+    wrapped into [-pi, pi), with numpy.unwrap's tie-break (a jump of
+    exactly -pi with a positive raw difference maps to +pi). ``jnp.mod``
+    is a floor mod, hence ``torch.remainder``."""
+    dd = diff(phase, axis=axis)
+    ddmod = torch.remainder(dd + _PI, 2.0 * _PI) - _PI
+    ddmod = torch.where((ddmod == -_PI) & (dd > 0), _PI, ddmod)
+    return dd, ddmod
+
+
+def unwrap(phase: torch.Tensor, axis: int = -2,
+           discont: float = _PI) -> torch.Tensor:
+    """Phase unwrapping along ``axis`` with numpy.unwrap's semantics."""
+    dd, ddmod = _wrapped_diff(phase, axis)
+    ph_correct = torch.where(dd.abs() < discont, 0.0, ddmod - dd)
+    corrections = torch.cumsum(ph_correct, dim=axis)
+    first = torch.zeros_like(phase.narrow(axis, 0, 1))
+    return phase + torch.cat([first, corrections], dim=axis)
+
+
+def instantaneous_frequency(phase: torch.Tensor,
+                            axis: int = -2) -> torch.Tensor:
+    """IF in [-1, 1]: the time difference of the unwrapped phase over pi,
+    with the first frame prepended so the length is kept. The unwrap's
+    cumsum cancels in the difference, so this is elementwise, as in the
+    reference."""
+    dd, ddmod = _wrapped_diff(phase, axis)
+    dphase = torch.where(dd.abs() < _PI, dd, ddmod)
+    return torch.cat([phase.narrow(axis, 0, 1), dphase], dim=axis) / _PI
+
+
+def frame_signal(wave: torch.Tensor, frame_length: int,
+                 frame_step: int) -> torch.Tensor:
+    """[..., samples] -> [..., frames, frame_length]; the trailing
+    remainder is dropped (a strided view, no copy)."""
+    return wave.unfold(-1, frame_length, frame_step)
 
 
 def polar_to_rect(magnitude: torch.Tensor, phase: torch.Tensor) -> torch.Tensor:
@@ -89,6 +137,20 @@ def _idft_matrices(config: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
     return (c * w).astype(np.float32), (d * w).astype(np.float32)
 
 
+def _dft_matrices(config: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
+    """Real forward-rDFT analysis matrices [N, N/2+1] with the Hann window
+    folded in: ``frames @ A + i * (frames @ B) == rfft(frames * hann)``.
+    float64 -> float32."""
+    n = config.frame_length
+    bins = config.num_rfft_bins
+    t = np.arange(n)[:, None].astype(np.float64)
+    k = np.arange(bins)[None, :].astype(np.float64)
+    ang = 2.0 * np.pi * k * t / n
+    w = hann_window(n).astype(np.float64)[:, None]
+    return ((w * np.cos(ang)).astype(np.float32),
+            (-w * np.sin(ang)).astype(np.float32))
+
+
 def _mel_matrices(config: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
     """(linear->mel [F, M], mel->linear pseudo-inverse [M, F]), float32."""
     l2m = linear_to_mel_matrix(
@@ -117,10 +179,97 @@ def _device_constants(config: AudioConfig, device: torch.device):
     )
 
 
+@functools.lru_cache(maxsize=16)
+def _analysis_constants(config: AudioConfig, device: torch.device):
+    """The float32 constants of the analysis path on ``device``:
+    ``(l2m [F, M], hann [N])``, and the DFT matrices ``(A, B)`` when
+    ``config.dft_mode == "matmul"``."""
+    l2m, _ = _mel_matrices(config)
+    arrays = [l2m, hann_window(config.frame_length)]
+    if config.dft_mode == "matmul":
+        arrays += list(_dft_matrices(config))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                 for a in arrays)
+
+
 def mel_pinv(config: AudioConfig, device) -> torch.Tensor:
     """The mel pseudo-inverse ``m2l`` [num_mel_bins, num_freq_bins] on
     ``device`` (cached)."""
     return _device_constants(config, torch.device(device))[0]
+
+
+def stft(wave: torch.Tensor, config: AudioConfig = AudioConfig()) -> torch.Tensor:
+    """S1: [..., 64000] wave -> [..., 128, 1024] complex64 spectrogram.
+
+    Pads to ``config.padded_length``, frames, applies the periodic Hann
+    window and rFFTs (``dft_mode="fft"``) or multiplies by the windowed
+    DFT matrices (``"matmul"``), then drops the DC bin (``discard_dc``) or
+    the Nyquist bin.
+    """
+    if wave.shape[-1] != config.audio_length:
+        raise ValueError(
+            f"expected waves of {config.audio_length} samples, got "
+            f"{wave.shape[-1]} (config.audio_length drives the frame count)"
+        )
+    wave = torch.nn.functional.pad(wave.float(),
+                                   (config.pad_left, config.pad_right))
+    frames = frame_signal(wave, config.frame_length, config.frame_step)
+    consts = _analysis_constants(config, wave.device)
+    if config.dft_mode == "matmul":
+        spec = torch.complex(frames @ consts[2], frames @ consts[3])
+    elif config.dft_mode == "fft":
+        spec = torch.fft.rfft(frames * consts[1], dim=-1)
+    else:
+        raise ValueError(f"dft_mode {config.dft_mode!r} is not "
+                         "'matmul'/'fft'")
+    return spec[..., 1:] if config.discard_dc else spec[..., :-1]
+
+
+def wave_to_specgrams(wave: torch.Tensor,
+                      config: AudioConfig = AudioConfig()):
+    """wave -> (log-magnitude, IF) on linear frequency bins."""
+    spec = stft(wave, config)
+    logmag = torch.log(spec.abs() + config.logmel_eps)
+    return logmag, instantaneous_frequency(torch.angle(spec), axis=-2)
+
+
+def specgrams_to_melspecgrams(logmag: torch.Tensor, ifreq: torch.Tensor,
+                              config: AudioConfig = AudioConfig()):
+    """S8: (log-magnitude, IF) on linear bins -> (log-mel-mag^2, mel-IF).
+    The magnitude goes through the mel matrix as power, the phase as the
+    accumulated angle, and IF is recomputed after the projection."""
+    l2m = _analysis_constants(config, logmag.device)[0]
+    mag2 = torch.exp(2.0 * logmag)
+    logmelmag2 = torch.log(mag2 @ l2m + config.logmel_eps)
+    mel_phase = torch.cumsum(ifreq * _PI, dim=-2) @ l2m
+    return logmelmag2, instantaneous_frequency(mel_phase, axis=-2)
+
+
+def melspecgrams_to_specgrams(logmelmag2: torch.Tensor,
+                              mel_ifreq: torch.Tensor,
+                              config: AudioConfig = AudioConfig()):
+    """S9: the inverse of S8 through the mel pseudo-inverse (lossy)."""
+    m2l = mel_pinv(config, logmelmag2.device)
+    mag2 = torch.exp(logmelmag2) @ m2l
+    logmag = 0.5 * torch.log(torch.clamp(mag2, min=0.0) + config.logmel_eps)
+    phase = torch.cumsum(mel_ifreq * _PI, dim=-2) @ m2l
+    return logmag, instantaneous_frequency(phase, axis=-2)
+
+
+def wave_to_melspecgrams(wave: torch.Tensor,
+                         config: AudioConfig = AudioConfig()):
+    """S11 analysis direction: wave -> (log-mel-mag^2, mel-IF)."""
+    return specgrams_to_melspecgrams(*wave_to_specgrams(wave, config), config)
+
+
+def wave_to_image(wave: torch.Tensor,
+                  config: AudioConfig = AudioConfig()) -> torch.Tensor:
+    """wave [..., 64000] -> GAN image [..., 128, 1024, 2]: channel 0 the
+    log-mel-mag^2 mapped from [logmel_min, logmel_max] to [-1, 1],
+    channel 1 the mel-IF."""
+    logmelmag2, mel_ifreq = wave_to_melspecgrams(wave, config)
+    ch0 = scale(logmelmag2, config.logmel_min, config.logmel_max, -1.0, 1.0)
+    return torch.stack([ch0, mel_ifreq], dim=-1)
 
 
 def istft_rect(re: torch.Tensor, im: torch.Tensor,
@@ -153,6 +302,14 @@ def istft_rect(re: torch.Tensor, im: torch.Tensor,
 def istft(spec: torch.Tensor, config: AudioConfig = AudioConfig()) -> torch.Tensor:
     """S10 tail: [..., 128, 1024] complex -> [..., 64000] float wave."""
     return istft_rect(spec.real.float(), spec.imag.float(), config)
+
+
+def specgrams_to_wave(logmag: torch.Tensor, ifreq: torch.Tensor,
+                      config: AudioConfig = AudioConfig()) -> torch.Tensor:
+    """(log-magnitude, IF) -> wave: phase cumsum, polar -> rect, iSTFT."""
+    mag = torch.exp(logmag)
+    phase = torch.cumsum(ifreq * _PI, dim=-2)
+    return istft_rect(mag * torch.cos(phase), mag * torch.sin(phase), config)
 
 
 def melspecgrams_to_wave(logmelmag2: torch.Tensor, mel_ifreq: torch.Tensor,

@@ -1,0 +1,126 @@
+"""Training state, Adam and the EMA update (``gansynth_tpu/train/state.py``).
+
+The state carries the generator, the critic, the EMA generator, one Adam
+for each network and the global step. Both networks create every
+parameter at construction, so the state has the same parameters at every
+stage.
+
+The optimizer is optax's ``adam`` written out: one step count shared by
+all parameters, and a parameter without a gradient updated as if its
+gradient were zero. ``torch.optim.Adam`` keeps a count per parameter and
+skips a parameter whose ``.grad`` is ``None``, so a block that joins at a
+stage boundary would restart its bias correction there (about 10x
+smaller first updates than optax's with b2 = 0.99).
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+from typing import Iterable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from gansynth_tpu_torch.models.discriminator import Discriminator
+from gansynth_tpu_torch.models.generator import Generator
+from gansynth_tpu_torch.utils.config import Config
+
+
+class Adam(torch.optim.Optimizer):
+    """optax.adam: ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2)
+    g^2``, ``p -= lr mu_hat / (sqrt(nu_hat) + eps)`` with the bias
+    corrections of one shared ``count``, taken in float32 as optax does."""
+
+    def __init__(self, params: Iterable[torch.Tensor], lr: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
+        self.count = 0
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("Adam.step takes no closure")
+        self.count += 1
+        for group in self.param_groups:
+            lr, b1, b2, eps = (group[k] for k in ("lr", "b1", "b2", "eps"))
+            bc1 = float(1 - np.float32(b1) ** self.count)
+            bc2 = float(1 - np.float32(b2) ** self.count)
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                mu, nu = st["mu"], st["nu"]
+                mu.mul_(b1).add_(g * (1.0 - b1))
+                nu.mul_(b2).add_(g * g * (1.0 - b2))
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                p.add_(update * -lr)
+
+
+def make_optimizer(config: Config, params: Iterable[torch.Tensor]) -> Adam:
+    """One Adam per network (the reference makes two from one config)."""
+    t = config.train
+    return Adam(params, t.learning_rate, b1=t.adam_beta1, b2=t.adam_beta2,
+                eps=t.adam_eps)
+
+
+@torch.no_grad()
+def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
+    """In place: ``e = e * decay + p * (1 - decay)`` for every parameter."""
+    for e, p in zip(ema.parameters(), model.parameters()):
+        e.copy_(e * decay + p * (1.0 - decay))
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Everything one training step reads and updates. ``step`` is the
+    global step, which the reference folds into its per-step RNG."""
+
+    g: Generator
+    d: Discriminator
+    ema: Generator
+    g_opt: Adam
+    d_opt: Adam
+    step: int = 0
+
+
+def create_train_state(config: Config, seed: Optional[int] = None,
+                       device="cuda", g: Optional[Generator] = None,
+                       ema: Optional[Generator] = None) -> TrainState:
+    """Fresh state on ``device``: G and D initialised from a
+    ``torch.Generator`` seeded with ``seed`` (``config.train.seed`` if
+    None), or the given ``g`` (and ``ema``, else a copy of ``g``); Adam
+    fresh for both."""
+    from gansynth_tpu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    seed = config.train.seed if seed is None else seed
+    rng = torch.Generator().manual_seed(seed)
+    if g is None:
+        g = Generator(config.model, generator=rng)
+    d = Discriminator(config.model, generator=rng)
+    g, d = g.to(dev).train(), d.to(dev).train()
+    ema = (copy.deepcopy(g) if ema is None else ema.to(dev)).eval()
+    for p in ema.parameters():
+        p.requires_grad_(False)
+    return TrainState(g=g, d=d, ema=ema,
+                      g_opt=make_optimizer(config, g.parameters()),
+                      d_opt=make_optimizer(config, d.parameters()))
+
+
+def state_from_ema(config: Config, npz_path: str, device="cuda",
+                   seed: Optional[int] = None) -> TrainState:
+    """A state that resumes from an exported run: G and the EMA from the
+    run's ``ema.npz``, D from the seeded init (the archive holds no D),
+    Adam fresh, and the archive's step as the global step."""
+    from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
+
+    g, step, _ = load_ema_generator(npz_path, config.model, device)
+    ema = load_ema_generator(npz_path, config.model, device)[0]
+    state = create_train_state(config, seed=seed, device=device, g=g,
+                               ema=ema)
+    state.step = step
+    return state

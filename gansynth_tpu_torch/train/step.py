@@ -1,0 +1,156 @@
+"""The WGAN-GP training step (``gansynth_tpu/train/step.py``).
+
+One call is one iteration: the spectral frontend on the raw wave batch,
+one critic update (three critic passes, real, fake and interpolates, with
+the gradient penalty's second-order gradient), one generator update
+against the refreshed critic, and the EMA update. ``stage`` is fixed when
+the step is made; ``alpha`` is an argument.
+
+The noise (the critic update's latents ``z_d``, the interpolation weights
+``u`` and the generator update's latents ``z_g``) is drawn from an
+explicit ``torch.Generator`` in that order, unless the caller passes it.
+The tests pass the reference's draws, so a difference in RNG cannot hide
+a fault.
+
+``fused_critic`` ("none", "pair", "all") only schedules the reference's
+critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
+groups), so all three compute the same function. The port runs the three
+passes as separate critic calls under each of them.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from gansynth_tpu_torch.models.layers import downsample_avg
+from gansynth_tpu_torch.ops.harmonic import image_pitch_logits
+from gansynth_tpu_torch.ops.spectral import wave_to_image
+from gansynth_tpu_torch.train import losses
+from gansynth_tpu_torch.train.state import TrainState, ema_update
+from gansynth_tpu_torch.utils.config import Config
+
+
+def real_image_for_stage(wave: torch.Tensor, stage: int,
+                         config: Config) -> torch.Tensor:
+    """Frontend and progressive downsampling: wave [B, T] -> the image at
+    the stage's resolution (the full-resolution image average-pooled)."""
+    image = wave_to_image(wave, config.audio)
+    factor = 1 << (config.model.num_stages - 1 - stage)
+    if factor > 1:
+        image = downsample_avg(image, factor)
+    return image
+
+
+def pitch_to_onehot(pitch: torch.Tensor, config: Config) -> torch.Tensor:
+    """MIDI pitch [B] -> one-hot [B, num_pitches] float32; out-of-range
+    pitches clip to the ends."""
+    m = config.model
+    idx = torch.clamp(pitch.long() - m.pitch_min, 0, m.num_pitches - 1)
+    return F.one_hot(idx, m.num_pitches).float()
+
+
+def _set_grads(loss: torch.Tensor, params) -> None:
+    """``p.grad`` for every parameter; ``None`` where ``loss`` does not
+    depend on ``p`` (Adam then updates it as with a zero gradient)."""
+    params = list(params)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = g
+
+
+StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
+
+
+def make_train_step(config: Config, stage: int) -> StepFn:
+    """The step function for ``stage``:
+    ``step(state, wave [B, T], pitch [B], alpha, z_d=None, u=None,
+    z_g=None, generator=None) -> (state, metrics)``. The state is updated
+    in place; the metrics are 0-d float32 tensors."""
+    m, t = config.model, config.train
+    if t.fused_critic not in ("none", "pair", "all"):
+        raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
+    use_pc = (t.pitch_consistency_weight > 0.0
+              and stage >= t.pitch_consistency_min_stage)
+
+    def critic_update(state, real, labels, z_d, u, alpha):
+        def critic_fn(x):
+            return state.d(x, stage, alpha)
+
+        with torch.no_grad():   # no gradient to G (step.py:89)
+            fake = state.g(z_d, labels, stage, alpha)
+        c_real, logits_real = critic_fn(real)
+        c_fake, logits_fake = critic_fn(fake)
+        gp = losses.gradient_penalty(critic_fn, real, fake, u)
+        wgan = losses.wgan_critic_loss(c_real, c_fake)
+        drift = losses.drift_penalty(c_real)
+        ce = losses.pitch_cross_entropy(logits_real, labels)
+        ce_fake = losses.pitch_cross_entropy(logits_fake, labels)
+        aux = ce + ce_fake if t.d_pitch_ce_on_fake else ce
+        d_loss = wgan + t.gp_weight * gp + t.drift_weight * drift \
+            + t.aux_pitch_weight * aux
+        _set_grads(d_loss, state.d.parameters())
+        state.d_opt.step()
+        return {
+            "d_loss": d_loss, "wgan": wgan, "gradient_penalty": gp,
+            "drift": drift, "d_pitch_ce": ce, "d_pitch_ce_fake": ce_fake,
+            "critic_real": torch.mean(c_real),
+            "critic_fake": torch.mean(c_fake),
+        }
+
+    def generator_update(state, labels, z_g, alpha):
+        fake = state.g(z_g, labels, stage, alpha)
+        c_fake, logits_fake = state.d(fake, stage, alpha)
+        adv = losses.generator_adversarial_loss(c_fake)
+        ce = losses.pitch_cross_entropy(logits_fake, labels)
+        g_loss = adv + t.aux_pitch_weight * ce
+        out = {"g_adv": adv, "g_pitch_ce": ce}
+        if use_pc:
+            pc = losses.pitch_cross_entropy(
+                image_pitch_logits(fake, stage, config,
+                                   t.pitch_consistency_tau), labels)
+            g_loss = g_loss + t.pitch_consistency_weight * pc
+            out["g_pitch_consistency"] = pc
+        out["g_loss"] = g_loss
+        _set_grads(g_loss, state.g.parameters())
+        state.g_opt.step()
+        return out
+
+    def step_fn(state: TrainState, wave: torch.Tensor, pitch: torch.Tensor,
+                alpha=1.0, z_d: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
+                z_g: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        device = wave.device
+        labels = pitch_to_onehot(pitch.to(device), config)
+        with torch.no_grad(), record_function("spectral_frontend"):
+            real = real_image_for_stage(wave.float(), stage, config)
+        batch = real.shape[0]
+        if z_d is None:
+            z_d = torch.randn((batch, m.latent_dim), generator=generator,
+                              device=device)
+        if u is None:
+            u = torch.rand((batch, 1, 1, 1), generator=generator,
+                           device=device)
+
+        # ----- critic update -----
+        with record_function("discriminator_update"):
+            metrics = critic_update(state, real, labels, z_d, u, alpha)
+
+        # ----- generator update (fresh latents, refreshed critic) -----
+        if z_g is None:
+            z_g = torch.randn((batch, m.latent_dim), generator=generator,
+                              device=device)
+        with record_function("generator_update"):
+            metrics.update(generator_update(state, labels, z_g, alpha))
+        with record_function("ema_update"):
+            ema_update(state.ema, state.g, t.ema_decay)
+        state.step += 1
+        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        metrics["alpha"] = torch.tensor(float(alpha))
+        return state, metrics
+
+    return step_fn

@@ -1,10 +1,13 @@
-"""EMA generator weights: the reference's ``ema.npz`` into the port.
+"""Weights of the reference carried into the port.
 
 ``gansynth_tpu``'s ``save_ema_npz`` writes one array per parameter under
 its flax path (``"['params']['block_0']['conv0']['kernel']"``), plus
-``__step__`` and ``__stage__``. :func:`from_jax_params` maps those arrays
-(or a flax parameter tree) onto the port's ``Generator.state_dict()``:
-conv kernels HWIO -> OIHW, dense kernels [in, out] -> [out, in].
+``__step__`` and ``__stage__``. :func:`from_jax_params` maps those arrays,
+or a flax parameter tree, of either network onto the port's state dict:
+the generator's ``latent_dense``, ``block_i`` and ``to_rgb_i``; the
+critic's ``from_rgb_i``, ``block_i.conv0/conv1``, ``final_conv``,
+``final_dense``, ``critic_head`` and ``pitch_head``. Conv kernels go from
+HWIO to OIHW, dense kernels from [in, out] to [out, in].
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def _port_name(path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     names = []
     for m in mods:
-        for prefix, port in (("block_", "blocks."), ("to_rgb_", "to_rgb.")):
+        for prefix, port in (("block_", "blocks."), ("to_rgb_", "to_rgb."),
+                             ("from_rgb_", "from_rgb.")):
             if m.startswith(prefix):
                 m = port + m[len(prefix):]
                 break
@@ -53,7 +57,8 @@ def _port_name(path: Tuple[str, ...]) -> str:
 
 
 def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Generator parameters of the reference -> the port's state dict.
+    """Parameters of the reference (generator or critic) -> the port's
+    state dict.
 
     ``params`` is either a flax tree (``{'params': {...}}`` or its inner
     dict) or the flat mapping :func:`load_ema_npz` returns.

@@ -46,3 +46,15 @@ def dtype_of(name: Optional[str]) -> torch.dtype:
     if name not in dtypes:
         raise ValueError(f"unsupported compute dtype {name!r}")
     return dtypes[name]
+
+
+def slope_in(dtype: torch.dtype, slope: float) -> float:
+    """``slope`` rounded to ``dtype``, as a Python float.
+
+    The reference multiplies an activation by a Python-float slope, which
+    JAX treats as weakly typed: it takes the activation's type, so in
+    bfloat16 the LeakyReLU slope 0.2 is 0.2001953125. PyTorch keeps a
+    Python scalar in float32 inside the op, so the port rounds the slope
+    itself.
+    """
+    return float(torch.tensor(slope, dtype=dtype))

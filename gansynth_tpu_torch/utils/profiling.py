@@ -1,14 +1,25 @@
-"""Where a synthesis batch spends its time on the card.
+"""Where a synthesis batch, or a training step, spends its time on the card.
 
     python -m gansynth_tpu_torch.utils.profiling --model-dir runs/flagship_r4
+    python -m gansynth_tpu_torch.utils.profiling --train
 
-Loads the run's EMA generator on the card and, for each batch size,
-times the stages of one seeded synthesis batch with CUDA events (the
+Synthesis: loads the run's EMA generator on the card and, for each batch
+size, times the stages of one seeded synthesis batch with CUDA events (the
 host latent draw and its copy to the card, the generator, K1, the iSTFT,
 the copy of the waves back), then traces a few batches with
 ``torch.profiler`` and prints the kernels that take the most device time
 and the device's idle share over the traced window. One JSON object per
 batch size is printed to standard output.
+
+``--train``: one WGAN-GP step of the run at its archived stage (the
+released config, batch ``stage_batch_sizes[stage]``, G and EMA from
+``ema.npz``, D seeded, fixture notes), once with K2 and K3
+(``conv_kernel`` / ``dblock_kernel`` = ``"pallas"``) and once with the
+plain lowerings (``"xla"``), in one process: step time with CUDA events,
+then a ``torch.profiler`` trace of a few steps with the device time of the
+step's phases (``spectral_frontend``, ``discriminator_update``,
+``generator_update``, ``ema_update``), the kernels that take the most
+device time and the idle share. One JSON object per lowering.
 """
 
 from __future__ import annotations
@@ -85,35 +96,101 @@ def stage_times(config, generator, stage: int, batch: int,
 @torch.inference_mode()
 def top_kernels(config, generator, stage: int, batch: int, iters: int = 5,
                 top: int = 12) -> Dict[str, object]:
-    """Device time by kernel name over ``iters`` traced batches, and the
-    device's idle share of the traced window's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """Device time by kernel name per batch over ``iters`` traced batches,
+    and the device's idle share of the traced window's wall time."""
     from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
 
     sample = make_seeded_sampler(config, generator, stage)
     seeds, pitches = list(range(batch)), [60] * batch
     sample(seeds, pitches).cpu()
+    return _trace(lambda: sample(seeds, pitches).cpu(), iters, top)
+
+
+PHASES = ("spectral_frontend", "discriminator_update", "generator_update",
+          "ema_update")
+
+
+def _trace(fn, iters: int, top: int) -> Dict[str, object]:
+    """``fn`` run ``iters`` times under ``torch.profiler``: per call, the
+    device time by kernel, the span of each step phase on the device's
+    timeline (its ``record_function`` range), and the idle share of the
+    traced window's wall time. Ranges on the device's timeline (the
+    phases, ``Optimizer.step#...``) are spans, not kernels, and are kept
+    out of the kernel sums."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            sample(seeds, pitches).cpu()
+            fn()
+        torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels: List[Dict[str, object]] = []
+    phases: Dict[str, float] = {}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        ms = getattr(e, "self_device_time_total", 0) / 1e3
-        kernels.append({"name": e.key[:90], "ms_per_batch": ms / iters,
-                        "calls_per_batch": e.count / iters})
-    kernels.sort(key=lambda k: -k["ms_per_batch"])
-    busy = sum(k["ms_per_batch"] for k in kernels) * iters
+        ms = e.device_time_total / 1e3 / iters
+        if e.key in PHASES:
+            phases[e.key] = ms
+        elif not (getattr(e, "is_user_annotation", False)
+                  or e.key.startswith("Optimizer.")):
+            kernels.append({"name": e.key[:90], "ms_per_call": ms,
+                            "launches_per_call": e.count / iters})
+    kernels.sort(key=lambda k: -k["ms_per_call"])
+    busy = sum(k["ms_per_call"] for k in kernels)
     return {
-        "device_ms_per_batch": busy / iters,
-        "wall_ms_per_batch": wall_ms / iters,
-        "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+        "device_ms_per_call": busy,
+        "wall_ms_per_call": wall_ms / iters,
+        "idle_share": 1.0 - busy * iters / wall_ms if wall_ms else None,
+        "phase_span_ms": phases,
         "top_kernels": kernels[:top],
+    }
+
+
+def train_step_profile(model_dir: str, kernels: str, device,
+                       steps: int = 3, trace_steps: int = 2,
+                       top: int = 15) -> Dict[str, object]:
+    """One training step of the run with the given lowering of the 3x3
+    convs and the stage-6 critic block: CUDA-event ms per step over
+    ``steps`` steps after a warm-up, and a trace of ``trace_steps``."""
+    from gansynth_tpu_torch.cli import run_config
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.schedule import schedule_from_config
+    from gansynth_tpu_torch.train.state import state_from_ema
+    from gansynth_tpu_torch.train.step import make_train_step
+
+    config = run_config(model_dir).released().with_overrides(
+        {"model": {"conv_kernel": kernels, "dblock_kernel": kernels}})
+    state = state_from_ema(config, f"{model_dir}/ema.npz", device)
+    stage, alpha = schedule_from_config(config).stage_and_alpha(state.step)
+    m = config.model
+    waves, pitches = note_batch(config.train.batch_for_stage(stage),
+                                m.pitch_min, m.pitch_max)
+    waves = torch.from_numpy(waves).to(device)
+    pitches = torch.from_numpy(pitches).to(device)
+    step_fn = make_train_step(config, stage)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def one():
+        step_fn(state, waves, pitches, alpha, generator=gen)
+
+    one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = _event_ms(one, steps)
+    trace = _trace(one, trace_steps, top)
+    return {
+        "kernels": kernels, "stage": stage, "alpha": alpha,
+        "batch": int(waves.shape[0]), "compute_dtype": m.compute_dtype,
+        "step_ms": step_ms,
+        # the traced window's wall time carries the profiler's own host
+        # cost; against the untraced step time the device's idle share is
+        "idle_share_untraced": 1.0 - trace["device_ms_per_call"] / step_ms,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "trace": trace,
     }
 
 
@@ -129,9 +206,19 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="gansynth_tpu_torch.utils.profiling")
     p.add_argument("--model-dir", default="runs/flagship_r4")
     p.add_argument("--batch", type=int, nargs="+", default=[1, 16])
+    p.add_argument("--train", action="store_true",
+                   help="profile one training step, with the kernels and "
+                        "with the plain lowerings")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     set_precision()
+    if args.train:
+        card = card_info()
+        for kernels in ("pallas", "xla"):
+            print(json.dumps({"card": card, "model_dir": args.model_dir,
+                              **train_step_profile(args.model_dir, kernels,
+                                                   device)}), flush=True)
+        return 0
     config = run_config(args.model_dir)
     generator, step, stage = load_ema_generator(
         f"{args.model_dir}/ema.npz", config.model, device)

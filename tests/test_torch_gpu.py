@@ -6,9 +6,13 @@ machine that has PyTorch and CUDA but no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
-(``--noconftest`` because ``tests/conftest.py`` imports JAX.) The bars are
-those of ``tests/test_pallas_kernels.py``: spectrum within atol 2e-2, wave
-max abs error below 5e-3 with an SNR above 40 dB.
+(``--noconftest`` because ``tests/conftest.py`` imports JAX.) The bars of
+K1 are those of ``tests/test_pallas_kernels.py``: spectrum within atol
+2e-2, wave max abs error below 5e-3 with an SNR above 40 dB. K2 and K3 are
+held to their plain versions (cuDNN, TF32 off) at the bars of
+``tests/test_pallas_conv.py`` and ``tests/test_pallas_dblock.py`` in f32,
+and within 3e-2 of the output's scale in bf16 (both sides accumulate in
+f32 and round once to bf16, whose ulp is 2**-8 of the value).
 """
 
 import dataclasses
@@ -17,6 +21,8 @@ import math
 import pytest
 import torch
 
+from gansynth_tpu_torch.kernels import conv as K2
+from gansynth_tpu_torch.kernels import dblock as K3
 from gansynth_tpu_torch.kernels import synthesis as K
 from gansynth_tpu_torch.ops import spectral as tspec
 from gansynth_tpu_torch.utils.config import AudioConfig
@@ -76,3 +82,116 @@ def test_image_to_wave_takes_the_kernel_on_cuda(cuda_device):
         K.synthesis_spectrum(
             x.reshape(-1)[1:1 + x.numel() // 2].reshape(1, 128, 1024, 2),
             CFG)
+
+
+def _rand(shape, device, seed, dtype=torch.float32, scale=1.0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(shape, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def _close(got, want, tol):
+    """max |got - want| <= tol * max(1, max |want|)."""
+    err = float((got.detach().float() - want.detach().float()).abs().max())
+    ref = max(1.0, float(want.detach().float().abs().max()))
+    assert err <= tol * ref, f"max abs err {err:.3e} > {tol} * {ref:.3e}"
+
+
+_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 16, 128, 128, 256),
+                                   (1, 5, 37, 20, 12)])
+def test_conv3x3_matches_plain(cuda_device, dtype, shape):
+    """Forward and first-order dx / dw at a ladder shape and at a ragged
+    one (every tile edge masked)."""
+    b, h, w, c_in, c_out = shape
+    x = _rand((b, h, w, c_in), cuda_device, 1, dtype).requires_grad_()
+    wt = _rand((c_out, c_in, 3, 3), cuda_device, 2, dtype,
+               (9 * c_in) ** -0.5).requires_grad_()
+    r = _rand((b, h, w, c_out), cuda_device, 3, dtype)
+    before = dict(K2.conv3x3_same.launches)
+    y = K2.conv3x3_same(x, wt)
+    gx, gw = torch.autograd.grad((y * r).sum(), (x, wt))
+    torch.cuda.synchronize()
+    assert K2.conv3x3_same.launches["forward"] == before["forward"] + 1
+    assert K2.conv3x3_same.launches["input_grad"] == before["input_grad"] + 1
+    y_p = K2.conv3x3_plain(x, wt)
+    gx_p, gw_p = torch.autograd.grad((y_p * r).sum(), (x, wt))
+    _close(y, y_p, _TOL[dtype])
+    _close(gx, gx_p, _TOL[dtype])
+    _close(gw, gw_p, _TOL[dtype] * 10)   # sums over B*H*W terms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_second_order(cuda_device, dtype):
+    """The WGAN-GP shape: d/dw of ||d(sum conv(x, w) r)/dx||^2; bar 1e-3
+    in f32 (tests/test_pallas_conv.py), 3e-2 of the scale in bf16."""
+    x = _rand((2, 8, 16, 16), cuda_device, 4, dtype).requires_grad_()
+    r = _rand((2, 8, 16, 24), cuda_device, 5, dtype)
+
+    def gp(fn, wt):
+        gx = torch.autograd.grad((fn(x, wt) * r).sum(), x,
+                                 create_graph=True)[0]
+        return torch.autograd.grad((gx.float() ** 2).sum(), wt)[0]
+
+    wt = _rand((24, 16, 3, 3), cuda_device, 6, dtype,
+               scale=0.1).requires_grad_()
+    got = gp(K2.conv3x3_same, wt)
+    want = gp(K2.conv3x3_plain, wt)
+    _close(got, want, 1e-3 if dtype == torch.float32 else 3e-2)
+
+
+def _dblock_inputs(device, b, h, w, c1, dtype, seed=10):
+    x = _rand((b, h, w, 64), device, seed, dtype)
+    k0 = _rand((64, 64, 3, 3), device, seed + 1, scale=0.1)
+    b0 = _rand((64,), device, seed + 2, scale=0.1)
+    k1 = _rand((c1, 64, 3, 3), device, seed + 3, scale=0.1)
+    b1 = _rand((c1,), device, seed + 4, scale=0.1)
+    return [x, k0, b0, k1, b1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 32, 128, 128), (1, 12, 20, 72)])
+def test_dblock_matches_plain(cuda_device, dtype, shape):
+    """Forward and first order against the literal chain, at a tile-aligned
+    and a ragged shape."""
+    b, h, w, c1 = shape
+    args = _dblock_inputs(cuda_device, b, h, w, c1, dtype)
+    for a in args:
+        a.requires_grad_()
+    r = _rand((b, h // 2, w // 2, c1), cuda_device, 20, dtype)
+    before = K3.fused_dblock.launches
+    y = K3.fused_dblock(*args, 0.2)
+    g = torch.autograd.grad((y * r).sum(), args)
+    torch.cuda.synchronize()
+    assert K3.fused_dblock.launches == before + 1
+    y_p = K3.dblock_plain(*args, 0.2)
+    g_p = torch.autograd.grad((y_p * r).sum(), args)
+    _close(y, y_p, 1e-5 if dtype == torch.float32 else 3e-2)
+    # explicit adjoints against autograd of the chain: the same cuDNN
+    # convs, rounded at other places in bf16
+    for a, b_ in zip(g, g_p):
+        _close(a, b_, 1e-4 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dblock_second_order(cuda_device, dtype):
+    """d/dk0 of ||d sum(block(x))/dx||^2; bar 1e-4 in f32
+    (tests/test_pallas_dblock.py), 3e-2 of the scale in bf16."""
+    x, k0, b0, k1, b1 = _dblock_inputs(cuda_device, 1, 8, 16, 128, dtype)
+    x.requires_grad_()
+    k0.requires_grad_()
+
+    def gp(fn):
+        gx = torch.autograd.grad(fn(x, k0, b0, k1, b1, 0.2).sum(), x,
+                                 create_graph=True)[0]
+        return torch.autograd.grad((gx.float() ** 2).sum(), k0)[0]
+
+    _close(gp(K3.fused_dblock), gp(K3.dblock_plain),
+           1e-4 if dtype == torch.float32 else 3e-2)

@@ -45,6 +45,22 @@ def test_no_forbidden_import(path):
         assert word not in text, f"{path}: {word!r}"
 
 
+def test_scan_covers_every_module_of_the_port():
+    """The scan walks the package, so the training path's modules are in
+    it with the serving path's."""
+    scanned = {os.path.relpath(p, ROOT) for p in _port_sources()}
+    for rel in ("chip_smoke.py", "gansynth_tpu_torch/kernels/conv.py",
+                "gansynth_tpu_torch/kernels/dblock.py",
+                "gansynth_tpu_torch/models/discriminator.py",
+                "gansynth_tpu_torch/ops/harmonic.py",
+                "gansynth_tpu_torch/train/losses.py",
+                "gansynth_tpu_torch/train/state.py",
+                "gansynth_tpu_torch/train/step.py",
+                "gansynth_tpu_torch/train/schedule.py",
+                "gansynth_tpu_torch/data/fixtures.py"):
+        assert rel in scanned
+
+
 def test_port_imports_without_jax():
     """Import every module of the port in a fresh interpreter in which
     importing jax, flax or gansynth_tpu fails."""
