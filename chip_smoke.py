@@ -24,7 +24,9 @@ raises, so the exit code is non-zero):
    batch 1, and time it in bf16;
 6. render three flagship notes (``runs/flagship_r4``, bf16, stage 6)
    through the seeded sampler, and one note in float32 on the card
-   against the same note on the CPU;
+   against the same note on the CPU; then the bf16 generator's image,
+   with the convs on cuDNN and with K2, against the JAX package's image
+   committed under ``tests/data``;
 7. serving: the synthesis service with the flagship weights behind its
    HTTP server, answering 4 concurrent requests, then shut down (K1's
    launches are counted over this phase);
@@ -34,11 +36,14 @@ raises, so the exit code is non-zero):
    one warm-up step, then 3 steps timed with CUDA events, with K2's and
    K3's launches counted over the 3 steps; the metrics must be finite and
    both networks must move;
-9. the same step in float32 from one state and one injected noise, once
+9. the same step in float32 from one state (so one drawn noise), once
    with the kernels and once with ``conv_kernel="xla"`` /
    ``dblock_kernel="xla"``, metric by metric;
-10. one JSON line with every kernel's launches on its path, error and
-    times; the total seconds; and the result line.
+10. one JSON line with every kernel's launches on its path, error,
+    times (K2 at every shape; the library call also under
+    ``cudnn.benchmark``; the fraction of the bound reached) and its
+    registers, spills and shared memory from ``ptxas``; the total
+    seconds; and the result line.
 
 The script exits non-zero, printing no result, where CUDA is not
 available or the port is not beside it. It writes nothing outside
@@ -98,6 +103,20 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def autotuned_ms(fn, iters: int = 20) -> float:
+    """``cuda_ms`` of ``fn`` with ``torch.backends.cudnn.benchmark`` on
+    (cuDNN times its algorithms on the first calls and keeps the fastest),
+    restored afterwards."""
+    import torch
+
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return cuda_ms(fn, iters=iters, warmup=10)
+    finally:
+        torch.backends.cudnn.benchmark = saved
 
 
 def wave_check(want, got, what: str):
@@ -226,6 +245,56 @@ def bound(flops, nbytes, peak):
                                        else "bytes")
 
 
+def _demangle(mangled: str) -> str:
+    """The function name (with an integer template argument, if any) of an
+    Itanium-mangled kernel name such as ``_ZN..23conv3x3_nhwc_bf16_wgmmaILi
+    256EEEv..``: the last length-prefixed component of its name."""
+    import re
+
+    rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
+    name = ""
+    while True:
+        m = re.match(r"(\d+)", rest)
+        if not m:
+            break
+        n = int(m.group(1))
+        name = rest[m.end():m.end() + n]
+        rest = rest[m.end() + n:]
+    t = re.match(r"ILi(\d+)E", rest)
+    return f"{name}<{t.group(1)}>" if t else name
+
+
+def ptxas_report(log: str):
+    """Registers, spills and static shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": _demangle(m.group(1))}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_store_bytes"] = int(m.group(1))
+            cur["spill_load_bytes"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return out
+
+
+# The times each kernel entry of the JSON line carries (K2: every shape).
+TIMES = ("ms", "plain_ms", "library_ms", "library_ms_autotuned", "bound_ms",
+         "bound_by", "fraction_of_bound")
+
 # Bars: f32 within 1e-4 of the output's scale (tests/test_pallas_conv.py);
 # bf16 within 3e-2, since both sides accumulate in f32 and round once to
 # bf16 (an ulp is 2**-8 of the value) after sums taken in other orders.
@@ -271,12 +340,18 @@ def check_conv_kernel(device):
                 nbytes = 2.0 * (b * h * w * (c_in + c_out) + 9 * c_in * c_out)
                 bound_ms, bound_by = bound(2.0 * b * h * w * 9 * c_in * c_out,
                                            nbytes, BF16_PEAK_FLOPS)
+
+                def library():
+                    return torch.nn.functional.conv2d(
+                        xd.permute(0, 3, 1, 2), wd, padding=1)
+
                 row.update(
                     ms=cuda_ms(lambda: conv3x3_same(xd, wd), iters=20),
                     plain_ms=cuda_ms(lambda: conv3x3_plain(xd, wd), iters=20),
-                    library_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
-                        xd.permute(0, 3, 1, 2), wd, padding=1), iters=20),
+                    library_ms=cuda_ms(library, iters=20),
+                    library_ms_autotuned=autotuned_ms(library),
                     bound_ms=bound_ms, bound_by=bound_by)
+                row["fraction_of_bound"] = bound_ms / row["ms"]
             del x, wt, r, y, gx, gw, y_p, gx_p, gw_p
         print(json.dumps({"k2_check": row}), flush=True)
         result["shapes"].append(row)
@@ -295,8 +370,7 @@ def check_conv_kernel(device):
     err, ref = close_err(gp(conv3x3_same), gp(conv3x3_plain))
     require(err, ref, 1e-3, "K2 second order")
     result["second_order_err"] = err
-    result.update({k: result["shapes"][0][k] for k in
-                   ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")})
+    result.update({k: result["shapes"][0][k] for k in TIMES})
     result["shape"] = result["shapes"][0]["shape"]
     return result
 
@@ -337,7 +411,10 @@ def check_dblock_kernel(device):
                 plain_ms=cuda_ms(lambda: dblock_plain(*args, 0.2), iters=20),
                 library_ms=cuda_ms(lambda: dblock_plain(*args, 0.2),
                                    iters=20),
+                library_ms_autotuned=autotuned_ms(
+                    lambda: dblock_plain(*args, 0.2)),
                 bound_ms=bound_ms, bound_by=bound_by)
+            result["fraction_of_bound"] = bound_ms / result["ms"]
         del args
         # first order (fixed cotangent) and the GP second order, batch 1
         small = [a.requires_grad_() for a in inputs(1, dtype, seed=30)]
@@ -414,8 +491,7 @@ def train_steps(device):
     config = training_config()
     state, stage, alpha, waves, pitches = training_setup(config, device)
     step_fn = make_train_step(config, stage)
-    gen = torch.Generator(device=device).manual_seed(0)
-    step_fn(state, waves, pitches, alpha, generator=gen)
+    step_fn(state, waves, pitches, alpha)
     torch.cuda.synchronize()
     g0, d0 = flat_params(state.g), flat_params(state.d)
 
@@ -426,7 +502,7 @@ def train_steps(device):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        _, m = step_fn(state, waves, pitches, alpha, generator=gen)
+        _, m = step_fn(state, waves, pitches, alpha)
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
@@ -462,7 +538,7 @@ STEP_BAR = 1e-3   # |kernels - plain| <= STEP_BAR * max(1, |plain|) per metric
 
 
 def kernels_vs_plain_step(device):
-    """One float32 step from one state and one injected noise, with the
+    """One float32 step from one state (and so one noise), with the
     kernels and with the plain lowerings; every metric within STEP_BAR."""
     import torch
 
@@ -473,16 +549,10 @@ def kernels_vs_plain_step(device):
     results = {}
     for kernels in ("pallas", "xla"):
         config = training_config("float32", kernels)
+        # one seed and step, so both draw the same noise
         state, stage, alpha, waves, pitches = training_setup(config, device)
-        batch, latent = waves.shape[0], config.model.latent_dim
-        gen = torch.Generator(device=device).manual_seed(123)
-        noise = dict(
-            z_d=torch.randn((batch, latent), generator=gen, device=device),
-            u=torch.rand((batch, 1, 1, 1), generator=gen, device=device),
-            z_g=torch.randn((batch, latent), generator=gen, device=device))
         before = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
-        _, m = make_train_step(config, stage)(state, waves, pitches, alpha,
-                                              **noise)
+        _, m = make_train_step(config, stage)(state, waves, pitches, alpha)
         torch.cuda.synchronize()
         after = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
         launched = after[0] > before[0] and after[1] > before[1]
@@ -542,6 +612,42 @@ def render_flagship(device, config, generator, stage):
     want = on_cpu([7], [60])
     err, snr = wave_check(want, got, "f32 note, card vs CPU")
     return rms.tolist(), err, snr
+
+
+def bf16_vs_reference(device, config):
+    """The flagship generator in bf16 on the card against the reference's
+    output committed under ``tests/data`` (made on the CPU by the JAX
+    package), with the convs on cuDNN (``"xla"``) and with K2 in the loop
+    (``"pallas"``), at the bar of ``tests/torch_reference_data.py``."""
+    import dataclasses
+
+    import torch
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_reference_data as ref
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
+
+    d = ref.load()
+    out = {}
+    for conv_kernel in ("xla", "pallas"):
+        model = dataclasses.replace(config.model, conv_kernel=conv_kernel)
+        g = load_ema_generator(os.path.join(FLAGSHIP, "ema.npz"), model,
+                               device)[0]
+        before = conv3x3_same.launches["forward"]
+        with torch.no_grad():
+            image = g(torch.from_numpy(d["z"]).to(device),
+                      torch.from_numpy(d["labels"]).to(device),
+                      int(d["stage"]), 1.0)
+        torch.cuda.synchronize()
+        launched = conv3x3_same.launches["forward"] - before
+        if launched != (3 if conv_kernel == "pallas" else 0):
+            raise AssertionError(f"{conv_kernel}: {launched} K2 launches")
+        out[conv_kernel] = ref.check(image.cpu().numpy(), d["image"])
+        del g
+    print(json.dumps({"bf16_vs_reference": out}), flush=True)
+    return out
 
 
 def serve_requests(config, generator, stage):
@@ -639,12 +745,24 @@ def main() -> int:
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = list(pool.map(_build.load_library, KERNELS))
+    resources = {}
     for lib in libs:
         print(f"built {lib.name}: {lib.build_seconds:.2f}s -> "
               f"{os.path.relpath(lib.path, ROOT)}", flush=True)
-        for line in lib.log.splitlines():
-            if "ptxas" in line and ("Used" in line or "spill" in line):
-                print(f"  {line.strip()}", flush=True)
+        resources[lib.name] = ptxas_report(lib.log)
+        for entry in resources[lib.name]:
+            print(f"  {json.dumps(entry)}", flush=True)
+    # dynamic shared memory of the bf16 (wgmma) kernels, from the sources
+    lib_of = {lib.name: lib.lib for lib in libs}
+    for entry in resources["conv3x3"]:
+        if entry["function"].startswith("conv3x3_nhwc_bf16_wgmma<"):
+            n = int(entry["function"].split("<")[1].rstrip(">"))
+            entry["dynamic_smem_bytes"] = \
+                lib_of["conv3x3"].conv3x3_nhwc_bf16_smem_bytes(n)
+    for entry in resources["dblock"]:
+        if entry["function"] == "dblock_nhwc_bf16_wgmma":
+            entry["dynamic_smem_bytes"] = \
+                lib_of["dblock"].dblock_nhwc_bf16_smem_bytes()
     phase("build", t, ", ".join(KERNELS))
 
     config = run_config(FLAGSHIP)
@@ -681,6 +799,12 @@ def main() -> int:
           f"{config.model.compute_dtype}; rms {[round(r, 4) for r in rms]}; "
           f"f32 card vs CPU max err {err:.3e}, SNR {snr:.1f} dB "
           "(bar 5e-3, 40 dB)")
+
+    t = time.perf_counter()
+    gaps = bf16_vs_reference(device, config)
+    phase("bf16 vs reference", t, "mean |diff| " + ", ".join(
+        f"{k} {v['mean_abs']:.3e}" for k, v in gaps.items())
+        + " (bar in tests/torch_reference_data.py)")
 
     t = time.perf_counter()
     synthesis_spectrum.launches = 0
@@ -722,6 +846,7 @@ def main() -> int:
         "bound_ms": k1["bound_ms"],
         "bound_by": k1["bound_by"],
         "library_ms": k1["library_ms"],
+        "resources": resources["synthesis_spectrum"],
     }, {
         "name": "conv3x3_same",
         "route": "cuda",
@@ -733,11 +858,10 @@ def main() -> int:
         "max_abs_err": k2["max_abs_err"],
         "max_abs_err_f32": k2["max_abs_err_f32"],
         "shape": k2["shape"],
-        "ms": k2["ms"],
-        "plain_ms": k2["plain_ms"],
-        "bound_ms": k2["bound_ms"],
-        "bound_by": k2["bound_by"],
-        "library_ms": k2["library_ms"],
+        **{k: k2[k] for k in TIMES},
+        "shapes": [{"shape": row["shape"], **{k: row[k] for k in TIMES}}
+                   for row in k2["shapes"]],
+        "resources": resources["conv3x3"],
     }, {
         "name": "fused_dblock",
         "route": "cuda",
@@ -747,11 +871,8 @@ def main() -> int:
         "max_abs_err": k3["max_abs_err"],
         "max_abs_err_f32": k3["max_abs_err_f32"],
         "shape": k3["shape"],
-        "ms": k3["ms"],
-        "plain_ms": k3["plain_ms"],
-        "bound_ms": k3["bound_ms"],
-        "bound_by": k3["bound_by"],
-        "library_ms": k3["library_ms"],
+        **{k: k3[k] for k in TIMES},
+        "resources": resources["dblock"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"total seconds: {time.perf_counter() - T0:.2f}", flush=True)

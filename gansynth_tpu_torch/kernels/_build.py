@@ -1,13 +1,19 @@
 """Builds a CUDA source under ``csrc/`` with plain ``nvcc`` and loads it.
 
 Each ``csrc/<name>.cu`` has a plain ``extern "C"`` interface and includes
-no PyTorch header, so it compiles in seconds into its own shared library,
-which ``ctypes`` loads. The library lands in
-``build/torch_kernels/<sha256 of source and flags>/lib<name>.so`` under
-the repository root. It is written to a temporary name and moved into
-place with ``os.replace``: an interrupted build leaves no half-written
-library behind, and there is no lock file to wait on. A library whose
-hash directory already holds it is loaded without a build.
+no PyTorch header (only CUDA's and the shared ``csrc/*.cuh``), so it
+compiles in seconds into its own shared library, which ``ctypes`` loads.
+The library lands in ``<build dir>/<key>/lib<name>.so``, where the key is
+a sha256 of the source, every ``csrc`` header it includes (transitively),
+the flags and the output of ``nvcc --version``: an edit to a header or
+another toolkit builds anew. The build dir is ``build/torch_kernels``
+under the checkout when the package sits in one (its grandparent holds
+``pyproject.toml``), else ``$XDG_CACHE_HOME/gansynth_tpu_torch/kernels``
+(``~/.cache`` when that is unset), never the installed package's tree. The
+library is written to a temporary name and moved into place with
+``os.replace``: an interrupted build leaves no half-written library
+behind, and there is no lock file to wait on. A library whose key
+directory already holds it is loaded without a build.
 
 Nothing runs at import time; the first launch of a kernel calls
 :func:`load_library`.
@@ -19,6 +25,7 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,7 +34,7 @@ from pathlib import Path
 from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
@@ -64,18 +71,69 @@ def find_nvcc() -> str:
     )
 
 
+def build_dir(root: Path = PACKAGE_ROOT) -> Path:
+    """Where libraries are built: ``<root>/build/torch_kernels`` when
+    ``root`` is a checkout (holds ``pyproject.toml``), else the user's
+    cache directory."""
+    if (root / "pyproject.toml").is_file():
+        return root / "build" / "torch_kernels"
+    cache = os.environ.get("XDG_CACHE_HOME") or os.path.join(
+        os.path.expanduser("~"), ".cache")
+    return Path(cache) / "gansynth_tpu_torch" / "kernels"
+
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(source: Path) -> list:
+    """The ``csrc`` headers that ``source`` includes with quotes, directly
+    or through another header, in a fixed order."""
+    seen, todo = [], [source]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            path = CSRC / name
+            if path.is_file() and path not in seen:
+                seen.append(path)
+                todo.append(path)
+    return sorted(seen)
+
+
+_nvcc_versions: Dict[str, str] = {}
+
+
+def nvcc_version(nvcc: str) -> str:
+    """``nvcc --version``'s output (read once per compiler)."""
+    if nvcc not in _nvcc_versions:
+        proc = subprocess.run([nvcc, "--version"], capture_output=True,
+                              text=True)
+        _nvcc_versions[nvcc] = proc.stdout + proc.stderr
+    return _nvcc_versions[nvcc]
+
+
+def build_key(name: str, nvcc: str) -> str:
+    """The hash that names a build of ``csrc/<name>.cu``: the source, its
+    headers, the flags and the compiler's version."""
+    source = CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in included_headers(source):
+        digest.update(b"\0" + header.name.encode() + b"\0"
+                      + header.read_bytes())
+    digest.update("\0".join(NVCC_FLAGS).encode())
+    digest.update(nvcc_version(nvcc).encode())
+    return digest.hexdigest()[:24]
+
+
 def _compile(name: str) -> KernelLibrary:
     source = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(source.read_bytes()
-                            + "\0".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / digest.hexdigest()[:24] / f"lib{name}.so"
+    nvcc = find_nvcc()
+    target = build_dir() / build_key(name, nvcc) / f"lib{name}.so"
     log_path = target.with_suffix(".log")
     if target.exists():
         log = log_path.read_text() if log_path.exists() else ""
         return KernelLibrary(name, target, ctypes.CDLL(str(target)), 0.0, log)
     target.parent.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.tmp-{os.getpid()}")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0

@@ -5,9 +5,11 @@
 and its C_in = 64 pixel-paired variant): an NHWC stride-1 SAME 3x3 conv
 with f32 accumulation and the output in x's type. For a CUDA tensor it
 launches the CUDA kernel of ``csrc/conv3x3.cu`` (built by ``nvcc`` on first
-use): tensor cores (``mma.sync``) in bf16, the FMA units in f32. For a CPU
-tensor it calls :func:`conv3x3_plain`. There is no fallback from one to
-the other.
+use): in bf16 an implicit GEMM on Hopper's tensor cores (TMA loads into an
+mbarrier ring, ``wgmma``), which takes channel counts that are multiples
+of 8 (TMA's 16-byte strides); in f32 the FMA units, any channel count. For
+a CPU tensor it calls :func:`conv3x3_plain`. There is no fallback from one
+to the other.
 
 It is differentiable to any order, like the reference's custom VJP
 (``pallas_conv.py:261-290``): the input gradient is another
@@ -66,6 +68,9 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
         raise ValueError("conv3x3_same needs a contiguous NHWC input")
     batch, height, width, c_in = x.shape
     c_out = weight.shape[0]
+    if x.dtype == torch.bfloat16 and (c_in % 8 or c_out % 8):
+        raise ValueError(f"conv3x3_same in bfloat16 needs C_in and C_out "
+                         f"multiples of 8, got {c_in} -> {c_out}")
     k_hwoi = weight.permute(2, 3, 0, 1).contiguous()
     y = torch.empty((batch, height, width, c_out), dtype=x.dtype,
                     device=x.device)

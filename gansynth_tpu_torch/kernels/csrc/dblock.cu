@@ -20,31 +20,47 @@
 // per image in bf16) and conv1's pre-pool activation never go to device
 // memory: the only traffic is x read once and y written once.
 //
-// Design (simple and right first). One block of 256 threads owns a tile of
-// 4 x 8 pooled outputs (8 x 16 conv1 outputs). It stages the input tile
-// with a two-pixel halo (12 x 20 pixels, zeros outside the image) in shared
-// memory once, computes conv0 + b0 + lrelu for the tile plus a one-pixel
-// halo (10 x 18 a0 pixels) into shared memory, and zeroes the a0 values
-// that fall outside the image, because conv1's SAME padding must see zeros
-// there. It then computes conv1 + b1 + lrelu in chunks of 64 output
-// channels, pools 2 x 2 and writes only the pooled tile. conv0 is
-// recomputed on the halo (180 a0 pixels per 128 conv1 pixels).
-//  - bf16 (the training path): tensor cores through mma.sync m16n8k16
-//    (bf16 in, f32 accumulate), everything staged as bf16 in rows of 64
-//    channels padded to 72 (so a warp's fragment loads fall in 32 distinct
-//    banks): the input tile (34,560 bytes), a0 (180 pixels padded to 12
-//    m16 tiles, 27,648 bytes) and the weights of one conv for all nine
-//    taps and 64 output channels (82,944 bytes; k0 whole, then k1 one
-//    64-channel chunk at a time). conv0: each warp owns 3 m16 tiles x 32
-//    channels; conv1: each warp owns one conv1 row (one m16 tile) x 64
-//    channels, then writes lrelu(conv1 + b1) as f32 into the input tile's
-//    space, and the block pools from there. 145,152 bytes of dynamic
-//    shared memory, one block per SM; no pipelining yet.
-//  - f32 (the parity path): the same tiles on the FMA units, staged as
-//    f32 ([64][12][20] input, [64][10][18] a0, weights streamed in chunks
-//    of 8 input channels, [9][8][64]); each thread owns a0 pixels and
-//    8 channels in conv0, and one pooled pixel (its four conv1 pixels)
-//    and 8 channels in conv1, and pools in registers. 125,952 bytes.
+// Every tile computes conv0 + b0 + lrelu for its conv1 tile plus a
+// one-pixel halo, zeroes the a0 values that fall outside the image (conv1's
+// SAME padding must see zeros there, not lrelu(conv0(0) + b0)), then conv1
+// + b1 + lrelu, pools 2 x 2 and writes only the pooled tile.
+//  - bf16 (the training path), on Hopper's parts (hopper.cuh): a
+//    persistent grid, one block of three warpgroups per SM, walks tiles of
+//    16 x 32 conv1 outputs (8 x 16 pooled), so conv0 is recomputed on
+//    18 x 34 = 612 a0 pixels per 512 (1.2x; an 8 x 16 tile pays 1.41x)
+//    and each tile's weight traffic is spread over 4x the pixels. One
+//    producer thread brings in each tile's input with its two-pixel halo
+//    as one TMA box {64, 36, 20, 1} (zeros outside the image), as soon as
+//    conv0 of the previous tile has read its box; another streams the
+//    weights one tap (64 x 64) per stage through a 4-stage mbarrier ring:
+//    k0's nine taps twice (conv0 runs in two rounds), then k1's nine taps
+//    for each 64-channel pass of conv1. All tiles carry the 128-byte
+//    swizzle. Both convs run on wgmma m64n64k16 with B (the weights) from
+//    shared memory and A in registers: a tap's window into the staged
+//    input or a0 starts at any pixel row, which a shared-memory descriptor
+//    cannot address (it wants 8-row-aligned swizzled tiles), while
+//    ldmatrix takes one 16-byte-aligned row address per lane (with the
+//    swizzle's XOR applied by hand). A is double-buffered, so a k16 step's
+//    ldmatrix loads overlap the previous step's MMAs. Two consumer
+//    warpgroups split the M rows: conv0's 640 (612 a0 pixels, padded) in
+//    10 m64 groups, 5 each in rounds of 3 + 2 (160 accumulators and two
+//    A buffers at once would exceed the registers and serialise the
+//    MMAs); conv1's 512 in 8 groups of one pooled row each. The epilogues
+//    run in registers: conv0's writes a0 as bf16 (the chain stores it so)
+//    into its own swizzled tile; conv1's orders its rows so that a
+//    thread's accumulators i and i + 2 are a vertical pair and lane ^ 4
+//    holds the horizontal neighbour, adds b1, applies lrelu, pools with
+//    one shuffle and stores y. 204,880 bytes of shared memory.
+//    Measured on an H100 at 0.60 ms, ~40 % of the bound: one block per SM,
+//    n64 MMAs issued in groups of 2-4 per warpgroup, each tap ending in a
+//    full wait, and the a0 hand-off between the convs leave the tensor
+//    cores idle part of the time.
+//  - f32 (the parity path): 4 x 8 pooled outputs (8 x 16 conv1 outputs)
+//    per block of 256 threads on the FMA units, staged as f32 ([64][12][20]
+//    input, [64][10][18] a0, weights streamed in chunks of 8 input
+//    channels, [9][8][64]); each thread owns a0 pixels and 8 channels in
+//    conv0, and one pooled pixel (its four conv1 pixels) and 8 channels in
+//    conv1, and pools in registers. 125,952 bytes.
 //
 // Plain C interface for ctypes: raw pointers, sizes, the cudaStream_t as
 // void*, and the cudaError_t of the launch as the return value.
@@ -53,6 +69,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -251,217 +269,304 @@ dblock_nhwc_f32_fma(const float* __restrict__ x, const float* __restrict__ k0,
   }
 }
 
-// ---- bf16: mma.sync tensor-core path ----
+// ---- bf16: TMA + wgmma path ----
 
-constexpr int MP = CIN + 8;               // padded row, bf16 (36 words)
-constexpr int MW = MP / 2;                // row stride in 32-bit words
-constexpr int M_XS = XH * XW * MP;        // bf16 elements
-constexpr int M_A0_ROWS = 192;            // 180 a0 pixels in 12 m16 tiles
-constexpr int M_A0 = M_A0_ROWS * MP;
-constexpr int M_WS = 9 * TC * MP;
-constexpr int M_SMEM = 2 * (M_XS + M_A0 + M_WS);   // 145,152 bytes
+constexpr int W_OH = 16;                 // conv1 rows of a tile
+constexpr int W_OW = 32;                 // conv1 columns of a tile
+constexpr int W_AH = W_OH + 2;           // a0 rows (one-pixel halo)
+constexpr int W_AW = W_OW + 2;
+constexpr int W_XH = W_OH + 4;           // input rows (two-pixel halo)
+constexpr int W_XW = W_OW + 4;
+constexpr int W_A0_PIXELS = W_AH * W_AW;                        // 612
+constexpr int W_A0_GROUPS = (W_A0_PIXELS + 63) / 64;            // 10 x m64
+constexpr int W_THREADS = 384;           // producer + two consumer warpgroups
+constexpr int W_STAGES = 4;              // weight ring
+constexpr uint32_t W_X_BYTES = W_XH * W_XW * 128;               // 92,160
+constexpr uint32_t W_A0_BYTES = ((W_A0_PIXELS * 128 + 1023) / 1024) * 1024;
+constexpr uint32_t W_STAGE_BYTES = 64 * 64 * 2;                 // one tap, 64 x 64
+constexpr int W_SMEM = W_X_BYTES + W_A0_BYTES + W_STAGES * W_STAGE_BYTES +
+                       8 * (2 * W_STAGES + 2) + 1024;
+constexpr int W_G0 = W_A0_GROUPS / 2;    // conv0 m64 groups per consumer (5)
+constexpr int W_G0A = 3;                 // ... taken in two rounds, 3 + 2
+constexpr int W_G0B = W_G0 - W_G0A;
+constexpr int W_G1 = W_OH / 2 / 2;       // conv1 m64 groups per consumer (4)
 
-static_assert(OH * OW * TC * 4 <= 2 * M_XS, "conv1 tile fits in xs");
-static_assert(OH == kThreads / 32 && OW == 16, "one m16 row per warp");
+static_assert(W_A0_GROUPS == 2 * W_G0, "conv0 groups split evenly");
+static_assert(W_X_BYTES % 1024 == 0, "a0 starts 1024-aligned");
+static_assert(W_OW == 32, "a conv1 m64 group is 2 rows x 32 columns");
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Weights w [9][c_out_total][CIN] (HWOI), output channels co0..co0+TC,
-// into ws [9][TC][MP] as bf16 (zero past c_out_total).
-__device__ __forceinline__ void load_weights_bf16(__nv_bfloat16* ws,
-                                                  const __nv_bfloat16* w,
-                                                  int co0, int c_out_total) {
-  for (int e = threadIdx.x; e < 9 * TC * (CIN / 8); e += kThreads) {
-    const int v = e % (CIN / 8);
-    const int row = e / (CIN / 8);    // tap * TC + n
-    const int co = co0 + row % TC;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (co < c_out_total) {
-      val = *reinterpret_cast<const uint4*>(
-          w + (static_cast<size_t>(row / TC) * c_out_total + co) * CIN + v * 8);
+// One conv of the tile on the tensor cores: nine taps, one weight stage
+// each, K = 64 channels in four k16 steps. G m64 groups per consumer: lane
+// row l of group q reads the staged activation at pixel rows[q] + the
+// tap's shift (a 128-byte swizzled row). A comes from ldmatrix into
+// registers, double-buffered, so the next k16 step's loads overlap this
+// step's MMAs; one wgmma group stays in flight until a tap's last step.
+template <int G>
+__device__ __forceinline__ void conv_taps(float (&acc)[G][32],
+                                          const int (&rows)[G], int pitch,
+                                          uint32_t src, unsigned char* ws,
+                                          uint64_t* full, uint64_t* empty,
+                                          int& it, int lane) {
+  const int khalf = lane >> 4;
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[q][i] = 0.0f;
+  }
+  for (int tap = 0; tap < 9; ++tap, ++it) {
+    const int s = it % W_STAGES;
+    const int shift = (tap / 3) * pitch + tap % 3;
+    uint32_t a[2][G][4];
+#pragma unroll
+    for (int q = 0; q < G; ++q) {
+      hopper::ldmatrix_x4(a[0][q],
+                          src + hopper::sw128_offset(rows[q] + shift, khalf));
     }
-    *reinterpret_cast<uint4*>(ws + row * MP + v * 8) = val;
+    hopper::mbar_wait(&full[s], (it / W_STAGES) & 1);
+    const uint64_t db = hopper::sw128_desc(ws + s * W_STAGE_BYTES);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+      for (int q = 0; q < G; ++q) hopper::fence_operands(acc[q]);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int q = 0; q < G; ++q) {
+        hopper::wgmma_rs_n64(acc[q], a[kk & 1][q], db + 2 * kk, 1);
+      }
+      hopper::wgmma_commit();
+      if (kk < 3) {
+        // The step before this one is done: its A registers are free.
+        hopper::wgmma_wait<1>();
+#pragma unroll
+        for (int q = 0; q < G; ++q) {
+          hopper::ldmatrix_x4(
+              a[(kk + 1) & 1][q],
+              src + hopper::sw128_offset(rows[q] + shift, 2 * (kk + 1) + khalf));
+        }
+      }
+    }
+    hopper::wgmma_wait<0>();
+#pragma unroll
+    for (int q = 0; q < G; ++q) hopper::fence_operands(acc[q]);
+    if (lane == 0) hopper::mbar_arrive(&empty[s]);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-dblock_nhwc_bf16_mma(const __nv_bfloat16* __restrict__ x,
-                     const __nv_bfloat16* __restrict__ k0,
-                     const __nv_bfloat16* __restrict__ b0,
-                     const __nv_bfloat16* __restrict__ k1,
-                     const __nv_bfloat16* __restrict__ b1,
-                     __nv_bfloat16* __restrict__ y, int height, int width,
-                     int c1, float slope) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* a0s = xs + M_XS;
-  __nv_bfloat16* ws = a0s + M_A0;
-  float* c1s = reinterpret_cast<float*>(smem_raw);   // [OH * OW][TC], in xs
-  const uint32_t* xs32 = reinterpret_cast<const uint32_t*>(xs);
-  const uint32_t* a032 = reinterpret_cast<const uint32_t*>(a0s);
-  const uint32_t* ws32 = reinterpret_cast<const uint32_t*>(ws);
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int oy0 = blockIdx.y * OH;
-  const int ox0 = blockIdx.x * OW;
-  const size_t image = static_cast<size_t>(blockIdx.z) * height * width;
-
-  for (int e = tid; e < XH * XW * (CIN / 8); e += kThreads) {
-    const int v = e % (CIN / 8);
-    const int pix = e / (CIN / 8);
-    const int gy = oy0 - 2 + pix / XW;
-    const int gx = ox0 - 2 + pix % XW;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (gy >= 0 && gy < height && gx >= 0 && gx < width) {
-      val = *reinterpret_cast<const uint4*>(
-          x + (image + static_cast<size_t>(gy) * width + gx) * CIN + v * 8);
+// conv0's epilogue for G m64 groups from group0 on: + b0, lrelu, round to
+// bf16 as the chain stores a0, into the swizzled a0 tile. a0 outside the
+// image is 0, since conv1's SAME padding sees zeros there, not
+// lrelu(conv0(0) + b0).
+template <int G>
+__device__ __forceinline__ void store_a0(const float (&acc)[G][32], int group0,
+                                         unsigned char* a0s,
+                                         const __nv_bfloat16* __restrict__ b0,
+                                         int oy0, int ox0, int height,
+                                         int width, float slope, int warp,
+                                         int lane) {
+  const int g = lane / 4;
+  const int t = lane % 4;
+#pragma unroll
+  for (int q = 0; q < G; ++q) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = (group0 + q) * 64 + warp * 16 + g + 8 * h;
+      if (p >= W_A0_PIXELS) continue;
+      const int gy = oy0 - 1 + p / W_AW;
+      const int gx = ox0 - 1 + p % W_AW;
+      const bool inside = gy >= 0 && gy < height && gx >= 0 && gx < width;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int ch = 8 * j + 2 * t;
+        float v0 = 0.0f, v1 = 0.0f;
+        if (inside) {
+          v0 = lrelu(acc[q][4 * j + 2 * h] + __bfloat162float(b0[ch]), slope);
+          v1 = lrelu(acc[q][4 * j + 2 * h + 1] + __bfloat162float(b0[ch + 1]),
+                     slope);
+        }
+        *reinterpret_cast<__nv_bfloat162*>(a0s + hopper::sw128_offset(p, j) +
+                                           4 * t) =
+            __floats2bfloat162_rn(v0, v1);
+      }
     }
-    *reinterpret_cast<uint4*>(xs + pix * MP + v * 8) = val;
   }
-  load_weights_bf16(ws, k0, 0, CIN);
+}
+
+__global__ void __launch_bounds__(W_THREADS, 1)
+dblock_nhwc_bf16_wgmma(const __grid_constant__ CUtensorMap x_map,
+                       const __grid_constant__ CUtensorMap k0_map,
+                       const __grid_constant__ CUtensorMap k1_map,
+                       const __nv_bfloat16* __restrict__ b0,
+                       const __nv_bfloat16* __restrict__ b1,
+                       __nv_bfloat16* __restrict__ y, int batch, int height,
+                       int width, int c1, float slope) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* xs = hopper::align1024(smem_raw);   // [20 x 36][64], sw128
+  unsigned char* a0s = xs + W_X_BYTES;               // [18 x 34][64], sw128
+  unsigned char* ws = a0s + W_A0_BYTES;              // [W_STAGES][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ws + W_STAGES * W_STAGE_BYTES);
+  uint64_t* empty = full + W_STAGES;
+  uint64_t* x_full = empty + W_STAGES;
+  uint64_t* x_empty = x_full + 1;
+
+  // Tiles of 16 x 32 conv1 outputs, x-tile fastest, walked by a
+  // persistent grid.
+  const int tiles_x = (width + W_OW - 1) / W_OW;
+  const int tiles_y = (height + W_OH - 1) / W_OH;
+  const int tiles = tiles_x * tiles_y * batch;
+  const int passes = (c1 + 63) / 64;   // conv1 in 64-channel passes
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    hopper::mbar_init(x_full, 1);
+    hopper::mbar_init(x_empty, 8);
+    hopper::mbar_fence_init();
+  }
   __syncthreads();
 
-  // ---- conv0 on the a0 tile: warp owns m16 tiles mt0 + 4 q (q < 3) and
-  // channels 32 * nh .. + 32.
-  {
-    const int mt0 = warp % 4;
-    const int nh = warp / 4;
-    int base[3][2];   // xs word offset of each fragment row's top-left tap
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = min((mt0 + 4 * q) * 16 + g + 8 * h, kA0Pixels - 1);
-        base[q][h] = ((p / AW) * XW + p % AW) * MW + t;
-      }
-    }
-    float acc[3][4][4];
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[q][j][r] = 0.0f;
-      }
-    }
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int shift = ((tap / 3) * XW + tap % 3) * MW;
-#pragma unroll
-      for (int ks = 0; ks < CIN / 16; ++ks) {
-        uint32_t b[4][2];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nb = (tap * TC + nh * 32 + j * 8 + g) * MW + ks * 8 + t;
-          b[j][0] = ws32[nb];
-          b[j][1] = ws32[nb + 4];
-        }
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const uint32_t a[4] = {
-              xs32[base[q][0] + shift + ks * 8],
-              xs32[base[q][1] + shift + ks * 8],
-              xs32[base[q][0] + shift + ks * 8 + 4],
-              xs32[base[q][1] + shift + ks * 8 + 4]};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_bf16(acc[q][j], a, b[j][0], b[j][1]);
-        }
-      }
-    }
-    // + b0, lrelu, round to bf16 as the chain stores a0; zero outside the
-    // image (conv1's SAME padding) and on the 12 padding rows.
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = (mt0 + 4 * q) * 16 + g + 8 * h;
-        const int gy = oy0 - 1 + p / AW;
-        const int gx = ox0 - 1 + p % AW;
-        const bool inside = p < kA0Pixels && gy >= 0 && gy < height &&
-                            gx >= 0 && gx < width;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int n = nh * 32 + j * 8 + 2 * t;
-          float v0 = 0.0f, v1 = 0.0f;
-          if (inside) {
-            v0 = lrelu(acc[q][j][2 * h] + __bfloat162float(b0[n]), slope);
-            v1 = lrelu(acc[q][j][2 * h + 1] + __bfloat162float(b0[n + 1]),
-                       slope);
+  if (wg == 0) {
+    hopper::setmaxnreg_dec<40>();
+    if (warp == 0 && lane == 0) {
+      // Weights: one tap per stage, k0's nine taps, then k1's nine taps for
+      // each 64-channel pass (rows past C1 read as zeros), tile after tile.
+      hopper::tma_prefetch(&k0_map);
+      hopper::tma_prefetch(&k1_map);
+      const int per_tile = 9 * (2 + passes);   // conv0 in two rounds
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        for (int st = 0; st < per_tile; ++st, ++it) {
+          const int s = it % W_STAGES;
+          if (it >= W_STAGES) {
+            hopper::mbar_wait(&empty[s], ((it / W_STAGES) - 1) & 1);
           }
-          *reinterpret_cast<__nv_bfloat162*>(a0s + p * MP + n) =
-              __floats2bfloat162_rn(v0, v1);
+          hopper::mbar_arrive_expect_tx(&full[s], W_STAGE_BYTES);
+          if (st < 18) {
+            hopper::tma_load_3d(ws + s * W_STAGE_BYTES, &k0_map, &full[s], 0,
+                                0, st % 9);
+          } else {
+            hopper::tma_load_3d(ws + s * W_STAGE_BYTES, &k1_map, &full[s], 0,
+                                64 * ((st - 18) / 9), (st - 18) % 9);
+          }
         }
       }
+    } else if (warp == 1 && lane == 0) {
+      // Input tiles with their two-pixel halo, one box each (zeros outside
+      // the image); the next tile's box comes in as soon as conv0 of this
+      // one has read its tile, while conv1 runs.
+      hopper::tma_prefetch(&x_map);
+      int n = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        if (n > 0) hopper::mbar_wait(x_empty, (n - 1) & 1);
+        const int tx = tile % tiles_x;
+        const int ty = (tile / tiles_x) % tiles_y;
+        const int b = tile / (tiles_x * tiles_y);
+        hopper::mbar_arrive_expect_tx(x_full, W_X_BYTES);
+        hopper::tma_load_4d(xs, &x_map, x_full, 0, tx * W_OW - 2,
+                            ty * W_OH - 2, b);
+      }
     }
+    return;
   }
 
-  // ---- conv1 in chunks of TC output channels: warp owns conv1 row
-  // `warp` (one m16 tile) x TC channels; then pool from c1s.
-  for (int co0 = 0; co0 < c1; co0 += TC) {
-    __syncthreads();   // a0s is complete; ws and xs are free
-    load_weights_bf16(ws, k1, co0, c1);
-    __syncthreads();
-    float acc[8][4];
+  hopper::setmaxnreg_inc<232>();
+  const int c = wg - 1;                  // consumer 0 or 1
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int lrow = lane & 15;            // the row this lane addresses
+  const uint32_t xs_u = hopper::smem_u32(xs);
+  const uint32_t a0_u = hopper::smem_u32(a0s);
+
+  // conv0's M = 640 rows (612 a0 pixels, the rest repeat the last) in 10
+  // m64 groups, this consumer's groups 5c .. 5c + 4: lane row -> x-tile
+  // pixel at tap (0, 0).
+  int xrow[W_G0];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+  for (int q = 0; q < W_G0; ++q) {
+    const int p = min((W_G0 * c + q) * 64 + warp * 16 + lrow,
+                      W_A0_PIXELS - 1);
+    xrow[q] = (p / W_AW) * W_XW + p % W_AW;
+  }
+  // conv1's m64 group q is pooled row 4c + q: warp w's 16 rows are conv1
+  // rows (2 pr, 2 pr + 1) x columns 8w .. 8w + 7, row h * 8 + g holding
+  // (2 pr + h, 8w + g). So a thread's accumulators i and i + 2 are a
+  // vertical pair, and lane ^ 4 holds the horizontal neighbour.
+  int arow[W_G1];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[j][r] = 0.0f;
+  for (int q = 0; q < W_G1; ++q) {
+    const int pr = W_G1 * c + q;
+    arow[q] = (2 * pr + (lrow >> 3)) * W_AW + warp * 8 + (lrow & 7);
+  }
+
+  int it = 0;   // weight stages consumed
+  int n = 0;    // tiles done
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const int oy0 = ((tile / tiles_x) % tiles_y) * W_OH;
+    const int ox0 = (tile % tiles_x) * W_OW;
+    const int b = tile / (tiles_x * tiles_y);
+
+    // ---- conv0 on the a0 tile (conv1's tile plus a one-pixel halo), in
+    // two rounds of this consumer's groups (3 + 2), so that the
+    // accumulators and two buffers of A fit the registers without
+    // serialising the MMAs; round 2 streams k0 again.
+    hopper::mbar_wait(x_full, n & 1);
+    {
+      float acc[W_G0A][32];
+      const int rows[W_G0A] = {xrow[0], xrow[1], xrow[2]};
+      conv_taps<W_G0A>(acc, rows, W_XW, xs_u, ws, full, empty, it, lane);
+      // The other consumer is done with the previous tile's a0.
+      hopper::named_barrier(1, 256);
+      store_a0<W_G0A>(acc, W_G0 * c, a0s, b0, oy0, ox0, height, width,
+                      slope, warp, lane);
     }
-#pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int arow = ((warp + tap / 3) * AW + g + tap % 3) * MW + t;
+    {
+      float acc[W_G0B][32];
+      const int rows[W_G0B] = {xrow[3], xrow[4]};
+      conv_taps<W_G0B>(acc, rows, W_XW, xs_u, ws, full, empty, it, lane);
+      if (lane == 0) hopper::mbar_arrive(x_empty);   // x is read
+      store_a0<W_G0B>(acc, W_G0 * c + W_G0A, a0s, b0, oy0, ox0, height,
+                      width, slope, warp, lane);
+    }
+    hopper::named_barrier(1, 256);   // a0 is complete (both consumers)
+
+    // ---- conv1 + b1 + lrelu + 2x2 pool, one 64-channel pass at a time
+    for (int pass = 0; pass < passes; ++pass) {
+      float acc[W_G1][32];
+      conv_taps<W_G1>(acc, arow, W_AW, a0_u, ws, full, empty, it, lane);
 #pragma unroll
-      for (int ks = 0; ks < CIN / 16; ++ks) {
-        const uint32_t a[4] = {
-            a032[arow + ks * 8], a032[arow + 8 * MW + ks * 8],
-            a032[arow + ks * 8 + 4], a032[arow + 8 * MW + ks * 8 + 4]};
+      for (int q = 0; q < W_G1; ++q) {
+        const int py = oy0 / 2 + W_G1 * c + q;
+        const int px = ox0 / 2 + warp * 4 + g / 2;
+        const bool store = (g & 1) == 0 && py < height / 2 && px < width / 2;
+        __nv_bfloat16* out =
+            y + ((static_cast<size_t>(b) * (height / 2) + py) * (width / 2) +
+                 px) * c1;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
-          const int nb = (tap * TC + j * 8 + g) * MW + ks * 8 + t;
-          mma_bf16(acc[j], a, ws32[nb], ws32[nb + 4]);
+          const int co = 64 * pass + 8 * j + 2 * t;
+          const float bias0 = co < c1 ? __bfloat162float(b1[co]) : 0.0f;
+          const float bias1 =
+              co + 1 < c1 ? __bfloat162float(b1[co + 1]) : 0.0f;
+          float v0 = lrelu(acc[q][4 * j] + bias0, slope) +
+                     lrelu(acc[q][4 * j + 2] + bias0, slope);
+          float v1 = lrelu(acc[q][4 * j + 1] + bias1, slope) +
+                     lrelu(acc[q][4 * j + 3] + bias1, slope);
+          v0 += __shfl_xor_sync(0xffffffffu, v0, 4);
+          v1 += __shfl_xor_sync(0xffffffffu, v1, 4);
+          if (store && co < c1) {
+            if (co + 1 < c1) {
+              *reinterpret_cast<__nv_bfloat162*>(out + co) =
+                  __floats2bfloat162_rn(0.25f * v0, 0.25f * v1);
+            } else {
+              out[co] = __float2bfloat16_rn(0.25f * v0);
+            }
+          }
         }
       }
-    }
-    // + b1, lrelu, into c1s [pixel][channel] as f32.
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = j * 8 + 2 * t;
-      const float bias0 =
-          co0 + n < c1 ? __bfloat162float(b1[co0 + n]) : 0.0f;
-      const float bias1 =
-          co0 + n + 1 < c1 ? __bfloat162float(b1[co0 + n + 1]) : 0.0f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float* dst = c1s + (warp * OW + g + 8 * h) * TC + n;
-        dst[0] = lrelu(acc[j][2 * h] + bias0, slope);
-        dst[1] = lrelu(acc[j][2 * h + 1] + bias1, slope);
-      }
-    }
-    __syncthreads();
-    // 2 x 2 mean pool; consecutive threads write consecutive channels.
-    for (int e = tid; e < PH * PW * TC; e += kThreads) {
-      const int n = e % TC;
-      const int pp = e / TC;
-      const int pr = pp / PW;
-      const int pc = pp % PW;
-      const int py = blockIdx.y * PH + pr;
-      const int px = blockIdx.x * PW + pc;
-      if (co0 + n >= c1 || py >= height / 2 || px >= width / 2) continue;
-      const float* src = c1s + ((2 * pr) * OW + 2 * pc) * TC + n;
-      const float s = src[0] + src[TC] + src[OW * TC] + src[OW * TC + TC];
-      y[((static_cast<size_t>(blockIdx.z) * (height / 2) + py) * (width / 2) +
-         px) * c1 + co0 + n] = __float2bfloat16_rn(0.25f * s);
     }
   }
 }
@@ -506,21 +611,44 @@ int dblock_nhwc_bf16(const void* x, const void* k0, const void* b0,
   if (bad_sizes(batch, height, width, c1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(
-      dblock_nhwc_bf16_mma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      M_SMEM);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((width / 2 + PW - 1) / PW, (height / 2 + PH - 1) / PH,
-                  batch);
-  dblock_nhwc_bf16_mma<<<grid, kThreads, M_SMEM,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(k0),
-      static_cast<const __nv_bfloat16*>(b0),
-      static_cast<const __nv_bfloat16*>(k1),
+  CUtensorMap x_map, k0_map, k1_map;
+  const cuuint64_t x_dims[4] = {CIN, static_cast<cuuint64_t>(width),
+                                static_cast<cuuint64_t>(height),
+                                static_cast<cuuint64_t>(batch)};
+  const cuuint64_t x_strides[3] = {2ull * CIN, 2ull * CIN * width,
+                                   2ull * CIN * width * height};
+  const cuuint32_t x_box[4] = {CIN, W_XW, W_XH, 1};
+  int err = hopper::encode_bf16_sw128(&x_map, x, 4, x_dims, x_strides, x_box);
+  if (err != 0) return err;
+  const cuuint32_t w_box[3] = {CIN, 64, 1};
+  const cuuint64_t k0_dims[3] = {CIN, CIN, 9};
+  const cuuint64_t k0_strides[2] = {2ull * CIN, 2ull * CIN * CIN};
+  err = hopper::encode_bf16_sw128(&k0_map, k0, 3, k0_dims, k0_strides, w_box);
+  if (err != 0) return err;
+  const cuuint64_t k1_dims[3] = {CIN, static_cast<cuuint64_t>(c1), 9};
+  const cuuint64_t k1_strides[2] = {2ull * CIN, 2ull * CIN * c1};
+  err = hopper::encode_bf16_sw128(&k1_map, k1, 3, k1_dims, k1_strides, w_box);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(
+      dblock_nhwc_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long tiles = static_cast<long>((width + W_OW - 1) / W_OW) *
+                     ((height + W_OH - 1) / W_OH) * batch;
+  const int sms = hopper::sm_count();
+  if (sms <= 0 || tiles > (1l << 31) - 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  dblock_nhwc_bf16_wgmma<<<grid, W_THREADS, W_SMEM,
+                           static_cast<cudaStream_t>(stream)>>>(
+      x_map, k0_map, k1_map, static_cast<const __nv_bfloat16*>(b0),
       static_cast<const __nv_bfloat16*>(b1), static_cast<__nv_bfloat16*>(y),
-      height, width, c1, slope);
+      batch, height, width, c1, slope);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Dynamic shared memory of one bf16 block, in bytes.
+int dblock_nhwc_bf16_smem_bytes() { return W_SMEM; }
 
 }  // extern "C"

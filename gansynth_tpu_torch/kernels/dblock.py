@@ -5,8 +5,9 @@
 conv3x3 SAME 64->64 + b0 -> lrelu -> conv3x3 SAME 64->C1 + b1 -> lrelu ->
 2x2 mean pool, with the two intermediate activations kept on chip. For a
 CUDA tensor it launches the CUDA kernel of ``csrc/dblock.cu`` (built by
-``nvcc`` on first use): tensor cores (``mma.sync``) in bf16, the FMA units
-in f32. For a CPU tensor it calls :func:`dblock_plain`, the reference's
+``nvcc`` on first use): in bf16 both convs on Hopper's tensor cores
+(``wgmma``, the input tile and the weights brought in by TMA), in f32 the
+FMA units. For a CPU tensor it calls :func:`dblock_plain`, the reference's
 ``_literal_chain``. There is no fallback from one to the other.
 
 Its backward, like the reference's (``pallas_dblock.py:286-296``),

@@ -27,6 +27,7 @@ from gansynth_tpu_torch.kernels.dblock import dblock_eligible, fused_dblock
 from gansynth_tpu_torch.models.layers import (
     EqualizedConv,
     EqualizedDense,
+    check_no_remat,
     downsample_avg,
     he_scale,
     leaky_relu,
@@ -84,6 +85,7 @@ class Discriminator(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_no_remat(config)
         self.config = cfg = config
         ch = cfg.stage_channels
         cdt = cfg.compute_dtype

@@ -22,6 +22,7 @@ from gansynth_tpu_torch.models.layers import (
     EqualizedConv,
     EqualizedDense,
     EqualizedUpConv,
+    check_no_remat,
     leaky_relu,
     lerp,
     pixel_norm,
@@ -69,6 +70,7 @@ class Generator(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_no_remat(config)
         self.config = cfg = config
         ch = cfg.stage_channels
         cdt = cfg.compute_dtype

@@ -25,6 +25,16 @@ from gansynth_tpu_torch.kernels.conv import conv3x3_eligible, conv3x3_same
 from gansynth_tpu_torch.utils.device import dtype_of, slope_in
 
 
+def check_no_remat(config) -> None:
+    """Raises on ``ModelConfig.remat``: the reference rematerialises its
+    blocks (``nn.remat``) when it is set, and the port does not yet, so it
+    refuses the option rather than ignore it."""
+    if config.remat:
+        raise ValueError("ModelConfig.remat=True is not supported by the "
+                         "PyTorch port yet (block rematerialisation); "
+                         "set remat=False")
+
+
 def he_scale(fan_in: int, gain: float) -> float:
     return gain / np.sqrt(float(fan_in))
 

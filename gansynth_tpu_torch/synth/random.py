@@ -1,4 +1,5 @@
-"""JAX's threefry2x32 generator and its normal transform, in numpy.
+"""JAX's threefry2x32 generator, its key operations and its uniform and
+normal transforms, in numpy.
 
 The serving contract makes a note a pure function of (params, seed,
 pitch): the reference draws each note's latent as
@@ -13,6 +14,11 @@ counter pair ``(i >> 32, i & 0xFFFFFFFF)`` and keeps ``y0 ^ y1``. The
 uniform bits match JAX bitwise; the normal values match to the last ulp
 or so, since ``log1p``/``sqrt`` of two libraries may round differently.
 
+The training step's noise follows the reference's key schedule
+(``gansynth_tpu/train/step.py:76-77``): ``fold_in`` the step into the
+state's key, ``split`` it three ways, and draw. ``fold_in``, ``split`` and
+``uniform`` equal ``jax.random``'s bit for bit.
+
 Latents are small (256 floats a note), so they are drawn on the host in
 numpy and handed to the device afterwards.
 """
@@ -20,7 +26,7 @@ numpy and handed to the device afterwards.
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -71,13 +77,35 @@ def seed_to_key(seed: int) -> Tuple[int, int]:
     return 0, seed & 0xFFFFFFFF
 
 
+Key = Tuple[int, int]
+
+
+def _counters(n: int):
+    """The (high, low) uint32 words of the 64-bit counters 0..n-1."""
+    counts = np.arange(n, dtype=np.uint64)
+    return ((counts >> np.uint64(32)).astype(np.uint32),
+            (counts & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def fold_in(key: Key, data: int) -> Key:
+    """``jax.random.fold_in(key, data)``: threefry of the counter pair
+    ``(0, uint32(data))`` under ``key``."""
+    y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
+                          np.array([int(data) & 0xFFFFFFFF], np.uint32))
+    return int(y0[0]), int(y1[0])
+
+
+def split(key: Key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)`` (partitionable layout): key ``i`` is
+    threefry of the 64-bit counter ``i`` under ``key``."""
+    y0, y1 = threefry2x32(key, *_counters(num))
+    return [(int(a), int(b)) for a, b in zip(y0, y1)]
+
+
 def _bits(key, n: int) -> np.ndarray:
     """Uint32 bits [..., n] of counters 0..n-1 under ``key`` (whose words
     may carry leading batch dimensions)."""
-    counts = np.arange(n, dtype=np.uint64)
-    hi = (counts >> np.uint64(32)).astype(np.uint32)
-    lo = (counts & np.uint64(0xFFFFFFFF)).astype(np.uint32)
-    y0, y1 = threefry2x32(key, hi, lo)
+    y0, y1 = threefry2x32(key, *_counters(n))
     return y0 ^ y1
 
 
@@ -110,6 +138,12 @@ def uniform_from_bits(bits: np.ndarray, minval: np.float32,
     floats = float_bits.view(np.float32) - np.float32(1.0)
     scaled = floats * (maxval - minval) + minval
     return np.maximum(minval, scaled).astype(np.float32)
+
+
+def uniform(key: Key, shape: Sequence[int]) -> np.ndarray:
+    """``jax.random.uniform(key, shape, float32)`` on [0, 1)."""
+    return uniform_from_bits(random_bits(key, shape), np.float32(0.0),
+                             np.float32(1.0))
 
 
 def _normal_from_bits(bits: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Training state, Adam and the EMA update (``gansynth_tpu/train/state.py``).
 
 The state carries the generator, the critic, the EMA generator, one Adam
-for each network and the global step. Both networks create every
+for each network, the run's threefry key and the global step. Both networks create every
 parameter at construction, so the state has the same parameters at every
 stage.
 
@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Iterable, Optional
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from torch import nn
 
 from gansynth_tpu_torch.models.discriminator import Discriminator
 from gansynth_tpu_torch.models.generator import Generator
+from gansynth_tpu_torch.synth import random as jrandom
 from gansynth_tpu_torch.utils.config import Config
 
 
@@ -37,6 +38,19 @@ class Adam(torch.optim.Optimizer):
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         super().__init__(params, dict(lr=lr, b1=b1, b2=b2, eps=eps))
         self.count = 0
+
+    # The shared count is state: it rides along when the optimizer is
+    # copied, pickled or saved (``Optimizer`` keeps only its own fields).
+    def __getstate__(self):
+        return {**super().__getstate__(), "count": self.count}
+
+    def state_dict(self):
+        return {**super().state_dict(), "count": self.count}
+
+    def load_state_dict(self, state_dict):
+        state_dict = dict(state_dict)
+        self.count = int(state_dict.pop("count"))
+        super().load_state_dict(state_dict)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -76,15 +90,25 @@ def ema_update(ema: nn.Module, model: nn.Module, decay: float) -> None:
 
 @dataclasses.dataclass
 class TrainState:
-    """Everything one training step reads and updates. ``step`` is the
-    global step, which the reference folds into its per-step RNG."""
+    """Everything one training step reads and updates. ``rng`` is the run's
+    threefry key (two uint32 words, as ``jax.random.key_data`` gives them)
+    and ``step`` the global step; the step draws its noise from
+    ``fold_in(rng, step)``, as the reference does, so a resumed run replays
+    the noise of an unbroken one."""
 
     g: Generator
     d: Discriminator
     ema: Generator
     g_opt: Adam
     d_opt: Adam
+    rng: Tuple[int, int]
     step: int = 0
+
+
+def train_key(seed: int) -> Tuple[int, int]:
+    """The reference's state key (``train/state.py:create_train_state``):
+    ``key(seed)`` split into (kg, kd, krest); the state keeps krest."""
+    return jrandom.split(jrandom.seed_to_key(seed), 3)[2]
 
 
 def create_train_state(config: Config, seed: Optional[int] = None,
@@ -93,7 +117,8 @@ def create_train_state(config: Config, seed: Optional[int] = None,
     """Fresh state on ``device``: G and D initialised from a
     ``torch.Generator`` seeded with ``seed`` (``config.train.seed`` if
     None), or the given ``g`` (and ``ema``, else a copy of ``g``); Adam
-    fresh for both."""
+    fresh for both; the key :func:`train_key` of the seed. (The weights'
+    init is torch's, not the reference's; the key is the reference's.)"""
     from gansynth_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
@@ -108,14 +133,16 @@ def create_train_state(config: Config, seed: Optional[int] = None,
         p.requires_grad_(False)
     return TrainState(g=g, d=d, ema=ema,
                       g_opt=make_optimizer(config, g.parameters()),
-                      d_opt=make_optimizer(config, d.parameters()))
+                      d_opt=make_optimizer(config, d.parameters()),
+                      rng=train_key(seed))
 
 
 def state_from_ema(config: Config, npz_path: str, device="cuda",
                    seed: Optional[int] = None) -> TrainState:
     """A state that resumes from an exported run: G and the EMA from the
     run's ``ema.npz``, D from the seeded init (the archive holds no D),
-    Adam fresh, and the archive's step as the global step."""
+    Adam fresh, the seed's key, and the archive's step as the global
+    step."""
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
 
     g, step, _ = load_ema_generator(npz_path, config.model, device)

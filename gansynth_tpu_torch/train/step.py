@@ -7,10 +7,13 @@ against the refreshed critic, and the EMA update. ``stage`` is fixed when
 the step is made; ``alpha`` is an argument.
 
 The noise (the critic update's latents ``z_d``, the interpolation weights
-``u`` and the generator update's latents ``z_g``) is drawn from an
-explicit ``torch.Generator`` in that order, unless the caller passes it.
-The tests pass the reference's draws, so a difference in RNG cannot hide
-a fault.
+``u`` and the generator update's latents ``z_g``) is the reference's
+(``step.py:76-77``, ``losses.py:27``): ``split(fold_in(state.rng,
+state.step), 3)`` gives one key for each, drawn with threefry on the host
+(``synth/random.py``) and copied to the step's device in one transfer. So
+the same seed and step give the reference's noise, and a resumed run
+replays it. A caller may still pass any of the three explicitly; the
+parity tests do.
 
 ``fused_critic`` ("none", "pair", "all") only schedules the reference's
 critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
@@ -22,6 +25,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
@@ -29,6 +33,7 @@ from torch.profiler import record_function
 from gansynth_tpu_torch.models.layers import downsample_avg
 from gansynth_tpu_torch.ops.harmonic import image_pitch_logits
 from gansynth_tpu_torch.ops.spectral import wave_to_image
+from gansynth_tpu_torch.synth import random as jrandom
 from gansynth_tpu_torch.train import losses
 from gansynth_tpu_torch.train.state import TrainState, ema_update
 from gansynth_tpu_torch.utils.config import Config
@@ -53,6 +58,34 @@ def pitch_to_onehot(pitch: torch.Tensor, config: Config) -> torch.Tensor:
     return F.one_hot(idx, m.num_pitches).float()
 
 
+def step_noise(rng: Tuple[int, int], step: int, batch: int,
+               latent_dim: int) -> Dict[str, np.ndarray]:
+    """The step's noise as the reference draws it: ``split(fold_in(rng,
+    step), 3)`` -> z_d = normal [batch, latent_dim], u = uniform [batch, 1,
+    1, 1], z_g = normal [batch, latent_dim], float32 numpy arrays."""
+    k_zd, k_interp, k_zg = jrandom.split(jrandom.fold_in(rng, step), 3)
+    return {"z_d": jrandom.normal(k_zd, (batch, latent_dim)),
+            "u": jrandom.uniform(k_interp, (batch, 1, 1, 1)),
+            "z_g": jrandom.normal(k_zg, (batch, latent_dim))}
+
+
+def _to_device(noise: Dict[str, np.ndarray],
+               device: torch.device) -> Dict[str, torch.Tensor]:
+    """One host-to-device copy of all of ``noise`` (pinned and
+    asynchronous on a card, so the host does not wait for the stream)."""
+    flat = torch.from_numpy(np.concatenate([v.reshape(-1)
+                                            for v in noise.values()]))
+    if device.type == "cuda":
+        flat = flat.pin_memory().to(device, non_blocking=True)
+    else:
+        flat = flat.to(device)
+    out, at = {}, 0
+    for k, v in noise.items():
+        out[k] = flat[at:at + v.size].reshape(v.shape)
+        at += v.size
+    return out
+
+
 def _set_grads(loss: torch.Tensor, params) -> None:
     """``p.grad`` for every parameter; ``None`` where ``loss`` does not
     depend on ``p`` (Adam then updates it as with a zero gradient)."""
@@ -68,8 +101,9 @@ StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 def make_train_step(config: Config, stage: int) -> StepFn:
     """The step function for ``stage``:
     ``step(state, wave [B, T], pitch [B], alpha, z_d=None, u=None,
-    z_g=None, generator=None) -> (state, metrics)``. The state is updated
-    in place; the metrics are 0-d float32 tensors."""
+    z_g=None) -> (state, metrics)``. Noise not passed is drawn from the
+    state's key and step (:func:`step_noise`). The state is updated in
+    place; the metrics are 0-d float32 tensors."""
     m, t = config.model, config.train
     if t.fused_critic not in ("none", "pair", "all"):
         raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
@@ -122,28 +156,25 @@ def make_train_step(config: Config, stage: int) -> StepFn:
     def step_fn(state: TrainState, wave: torch.Tensor, pitch: torch.Tensor,
                 alpha=1.0, z_d: Optional[torch.Tensor] = None,
                 u: Optional[torch.Tensor] = None,
-                z_g: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                z_g: Optional[torch.Tensor] = None):
         device = wave.device
+        batch = wave.shape[0]
+        given = {"z_d": z_d, "u": u, "z_g": z_g}
+        if any(v is None for v in given.values()):
+            drawn = step_noise(state.rng, state.step, batch, m.latent_dim)
+            drawn = _to_device({k: drawn[k] for k, v in given.items()
+                                if v is None}, device)
+            given.update(drawn)
+        z_d, u, z_g = given["z_d"], given["u"], given["z_g"]
         labels = pitch_to_onehot(pitch.to(device), config)
         with torch.no_grad(), record_function("spectral_frontend"):
             real = real_image_for_stage(wave.float(), stage, config)
-        batch = real.shape[0]
-        if z_d is None:
-            z_d = torch.randn((batch, m.latent_dim), generator=generator,
-                              device=device)
-        if u is None:
-            u = torch.rand((batch, 1, 1, 1), generator=generator,
-                           device=device)
 
         # ----- critic update -----
         with record_function("discriminator_update"):
             metrics = critic_update(state, real, labels, z_d, u, alpha)
 
         # ----- generator update (fresh latents, refreshed critic) -----
-        if z_g is None:
-            z_g = torch.randn((batch, m.latent_dim), generator=generator,
-                              device=device)
         with record_function("generator_update"):
             metrics.update(generator_update(state, labels, z_g, alpha))
         with record_function("ema_update"):

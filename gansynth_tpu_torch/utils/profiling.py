@@ -13,19 +13,23 @@ batch size is printed to standard output.
 
 ``--train``: one WGAN-GP step of the run at its archived stage (the
 released config, batch ``stage_batch_sizes[stage]``, G and EMA from
-``ema.npz``, D seeded, fixture notes), once with K2 and K3
-(``conv_kernel`` / ``dblock_kernel`` = ``"pallas"``) and once with the
-plain lowerings (``"xla"``), in one process: step time with CUDA events,
-then a ``torch.profiler`` trace of a few steps with the device time of the
-step's phases (``spectral_frontend``, ``discriminator_update``,
-``generator_update``, ``ema_update``), the kernels that take the most
-device time and the idle share. One JSON object per lowering.
+``ema.npz``, D seeded, fixture notes), with K2 and K3 (``conv_kernel`` /
+``dblock_kernel`` = ``"pallas"``), with the plain lowerings (``"xla"``),
+and with the plain lowerings under ``torch.backends.cudnn.benchmark``
+(cuDNN times its algorithms and keeps the fastest; set for that run only),
+in one process: the time of each of 12 steps after a warm-up with CUDA
+events (median, least and most), then a ``torch.profiler`` trace of a few
+steps with the device time of the step's phases (``spectral_frontend``,
+``discriminator_update``, ``generator_update``, ``ema_update``), the
+kernels that take the most device time and the idle share. One JSON
+object per run.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import statistics
 import time
 from typing import Dict, List
 
@@ -151,11 +155,14 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
 
 
 def train_step_profile(model_dir: str, kernels: str, device,
-                       steps: int = 3, trace_steps: int = 2,
-                       top: int = 15) -> Dict[str, object]:
+                       steps: int = 12, trace_steps: int = 2,
+                       top: int = 15,
+                       cudnn_benchmark: bool = False) -> Dict[str, object]:
     """One training step of the run with the given lowering of the 3x3
-    convs and the stage-6 critic block: CUDA-event ms per step over
-    ``steps`` steps after a warm-up, and a trace of ``trace_steps``."""
+    convs and the stage-6 critic block: the CUDA-event ms of each of
+    ``steps`` steps after two warm-up steps, and a trace of
+    ``trace_steps``; ``cudnn_benchmark`` sets
+    ``torch.backends.cudnn.benchmark`` for this run and restores it."""
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.data.fixtures import note_batch
     from gansynth_tpu_torch.train.schedule import schedule_from_config
@@ -172,23 +179,31 @@ def train_step_profile(model_dir: str, kernels: str, device,
     waves = torch.from_numpy(waves).to(device)
     pitches = torch.from_numpy(pitches).to(device)
     step_fn = make_train_step(config, stage)
-    gen = torch.Generator(device=device).manual_seed(0)
 
     def one():
-        step_fn(state, waves, pitches, alpha, generator=gen)
+        step_fn(state, waves, pitches, alpha)
 
-    one()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = _event_ms(one, steps)
-    trace = _trace(one, trace_steps, top)
+    saved = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = cudnn_benchmark
+    try:
+        for _ in range(2):
+            one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = [_event_ms(one, 1) for _ in range(steps)]
+        trace = _trace(one, trace_steps, top)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+    median = statistics.median(times)
     return {
-        "kernels": kernels, "stage": stage, "alpha": alpha,
+        "kernels": kernels, "cudnn_benchmark": cudnn_benchmark,
+        "stage": stage, "alpha": alpha,
         "batch": int(waves.shape[0]), "compute_dtype": m.compute_dtype,
-        "step_ms": step_ms,
+        "step_ms_median": median, "step_ms_min": min(times),
+        "step_ms_max": max(times), "step_ms": times,
         # the traced window's wall time carries the profiler's own host
         # cost; against the untraced step time the device's idle share is
-        "idle_share_untraced": 1.0 - trace["device_ms_per_call"] / step_ms,
+        "idle_share_untraced": 1.0 - trace["device_ms_per_call"] / median,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "trace": trace,
     }
@@ -207,17 +222,20 @@ def main(argv=None) -> int:
     p.add_argument("--model-dir", default="runs/flagship_r4")
     p.add_argument("--batch", type=int, nargs="+", default=[1, 16])
     p.add_argument("--train", action="store_true",
-                   help="profile one training step, with the kernels and "
-                        "with the plain lowerings")
+                   help="profile one training step, with the kernels, "
+                        "with the plain lowerings, and with the plain "
+                        "lowerings under cudnn.benchmark")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     set_precision()
     if args.train:
         card = card_info()
-        for kernels in ("pallas", "xla"):
+        for kernels, bench in (("pallas", False), ("xla", False),
+                               ("xla", True)):
             print(json.dumps({"card": card, "model_dir": args.model_dir,
-                              **train_step_profile(args.model_dir, kernels,
-                                                   device)}), flush=True)
+                              **train_step_profile(
+                                  args.model_dir, kernels, device,
+                                  cudnn_benchmark=bench)}), flush=True)
         return 0
     config = run_config(args.model_dir)
     generator, step, stage = load_ema_generator(

@@ -101,12 +101,18 @@ _TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 16, 128, 128, 256),
-                                   (1, 5, 37, 20, 12)])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, (2, 16, 128, 128, 256)),
+    (torch.bfloat16, (2, 16, 128, 128, 256)),
+    (torch.float32, (1, 5, 37, 20, 12)),
+    # bf16 takes channels in multiples of 8 (TMA's 16-byte strides): ragged
+    # in H and W, and in channels against the 64-channel K chunk and the
+    # 128-channel N tile
+    (torch.bfloat16, (1, 5, 37, 24, 40)),
+])
 def test_conv3x3_matches_plain(cuda_device, dtype, shape):
     """Forward and first-order dx / dw at a ladder shape and at a ragged
-    one (every tile edge masked)."""
+    one (every tile edge masked or zero-filled)."""
     b, h, w, c_in, c_out = shape
     x = _rand((b, h, w, c_in), cuda_device, 1, dtype).requires_grad_()
     wt = _rand((c_out, c_in, 3, 3), cuda_device, 2, dtype,
@@ -123,6 +129,17 @@ def test_conv3x3_matches_plain(cuda_device, dtype, shape):
     _close(y, y_p, _TOL[dtype])
     _close(gx, gx_p, _TOL[dtype])
     _close(gw, gw_p, _TOL[dtype] * 10)   # sums over B*H*W terms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c_in,c_out", [(20, 24), (24, 12)])
+def test_conv3x3_bf16_rejects_channels_off_8(cuda_device, c_in, c_out):
+    x = _rand((1, 4, 16, c_in), cuda_device, 1, torch.bfloat16)
+    wt = _rand((c_out, c_in, 3, 3), cuda_device, 2, torch.bfloat16)
+    before = dict(K2.conv3x3_same.launches)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        K2.conv3x3_same(x, wt)
+    assert K2.conv3x3_same.launches == before
 
 
 @pytest.mark.gpu
@@ -156,10 +173,13 @@ def _dblock_inputs(device, b, h, w, c1, dtype, seed=10):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 32, 128, 128), (1, 12, 20, 72)])
+@pytest.mark.parametrize("shape", [(2, 32, 128, 128), (1, 12, 20, 72),
+                                   (1, 20, 40, 72)])
 def test_dblock_matches_plain(cuda_device, dtype, shape):
     """Forward and first order against the literal chain, at a tile-aligned
-    and a ragged shape."""
+    shape and two ragged ones: (1, 12, 20) is smaller than one bf16 tile
+    (16 x 32 conv1 outputs), (1, 20, 40) spills into a second tile in
+    both directions; C1 = 72 leaves the second 64-channel pass partial."""
     b, h, w, c1 = shape
     args = _dblock_inputs(cuda_device, b, h, w, c1, dtype)
     for a in args:
@@ -195,3 +215,37 @@ def test_dblock_second_order(cuda_device, dtype):
 
     _close(gp(K3.fused_dblock), gp(K3.dblock_plain),
            1e-4 if dtype == torch.float32 else 3e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("conv_kernel", ["pallas", "xla"])
+def test_flagship_bf16_generator_matches_reference_file(cuda_device,
+                                                        conv_kernel):
+    """The port's stage-6 flagship generator in bf16 on the card against
+    the reference's output committed under tests/data (made on the CPU;
+    this machine need not have JAX), at the bar that
+    tests/torch_reference_data.py states: with ``conv_kernel="pallas"``
+    K2 runs the eligible convs (conv1 of blocks 3-5), with ``"xla"``
+    cuDNN runs them all."""
+    import os
+
+    import torch_reference_data as ref
+    from gansynth_tpu_torch.cli import run_config
+    from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
+
+    flagship = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "runs", "flagship_r4")
+    d = ref.load()
+    config = run_config(flagship)
+    model = dataclasses.replace(config.model, conv_kernel=conv_kernel)
+    g, _, _ = load_ema_generator(os.path.join(flagship, "ema.npz"), model,
+                                 cuda_device)
+    before = K2.conv3x3_same.launches["forward"]
+    with torch.no_grad():
+        got = g(torch.from_numpy(d["z"]).to(cuda_device),
+                torch.from_numpy(d["labels"]).to(cuda_device),
+                int(d["stage"]), 1.0)
+    torch.cuda.synchronize()
+    launched = K2.conv3x3_same.launches["forward"] - before
+    assert launched == (3 if conv_kernel == "pallas" else 0)
+    ref.check(got.cpu().numpy(), d["image"])

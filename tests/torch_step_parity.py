@@ -1,7 +1,7 @@
-"""Shared setup of the whole-step parity tests (``test_torch_train_step*.py``):
-one state, one batch, one real image and one noise draw in both packages,
-and the checks of metrics, gradients, parameters and EMA that those
-files' docstrings state."""
+"""Shared setup of the whole-step parity tests (``test_torch_train_step*.py``,
+``test_torch_step_rng.py``): one state, one batch, one real image and one
+noise draw in both packages, and the checks of metrics, gradients,
+parameters and EMA that those files' docstrings state."""
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +33,11 @@ def configs(overrides):
         overrides)
 
 
-def run_both(monkeypatch, overrides, stage, alpha):
+def run_both(monkeypatch, overrides, stage, alpha, inject=True):
+    """One step in both packages from the reference's seed-0 state. With
+    ``inject`` the port is handed the reference's z_d, u and z_g; without
+    it the port draws them from its own state key, which must be the
+    reference's."""
     jcfg, tcfg = configs(overrides)
     batch = jcfg.train.batch_for_stage(stage)
     wave, pitch = waves(batch)
@@ -50,16 +54,18 @@ def run_both(monkeypatch, overrides, stage, alpha):
         "z_g": jax.random.normal(k_zg, (batch, latent), jnp.float32),
     }
 
-    ts = create_train_state(tcfg, device="cpu")
+    ts = create_train_state(tcfg, seed=0, device="cpu")
+    assert ts.rng == tuple(int(v) for v in jax.random.key_data(state.rng))
     ts.g.load_state_dict(from_jax_params(state.g_params))
     ts.d.load_state_dict(from_jax_params(state.d_params))
     ts.ema.load_state_dict(from_jax_params(state.ema_params))
 
     new, jm = jax.jit(j_make_step(jcfg, stage))(
         state, jnp.asarray(wave), jnp.asarray(pitch), jnp.float32(alpha))
+    given = ({k: torch.from_numpy(np.array(v)) for k, v in noise.items()}
+             if inject else {})
     _, tm = make_train_step(tcfg, stage)(
-        ts, torch.from_numpy(wave), torch.from_numpy(pitch), alpha,
-        **{k: torch.from_numpy(np.array(v)) for k, v in noise.items()})
+        ts, torch.from_numpy(wave), torch.from_numpy(pitch), alpha, **given)
     return new, jm, ts, tm
 
 
