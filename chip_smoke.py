@@ -13,18 +13,25 @@ raises, so the exit code is non-zero):
    critic block) with plain ``nvcc``, one process each, all at once, and
    print their ``ptxas`` lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
-   of the service, and time the kernel, the plain version and the
-   PyTorch library form with CUDA events;
+   of the service, and to its own bits over ``K1_REPEATS`` repeats; time
+   the kernel, the plain version and the PyTorch library form with CUDA
+   events: back-to-back eager calls (``ms``, as for K2 and K3) and the
+   same calls replayed from a CUDA graph (``graph_ms``, the device's time
+   with the host's cost of a call taken away);
 4. hold K2 to ``F.conv2d`` (TF32 off) at every shape the stage-6 training
    step gives it, in bf16 and f32: the forward, and dx and dw through
    autograd; a second-order (gradient-penalty) gradient at a small shape;
-   time each shape in bf16;
+   time each shape in bf16; and, measured only, the C_in = 64 trunk conv
+   of generator block 6 (``K2P_SHAPE``), which the routing gate keeps off
+   the path as the reference's does;
 5. hold K3 to the literal chain at the flagship shape [8, 128, 1024, 64]
    -> 128 in bf16 and f32, with first- and second-order gradients at
    batch 1, and time it in bf16;
 6. render three flagship notes (``runs/flagship_r4``, bf16, stage 6)
    through the seeded sampler, and one note in float32 on the card
-   against the same note on the CPU; then the bf16 generator's image,
+   against the same note on the CPU, ``F32_NOTE_RUNS`` times, each run
+   also holding K1 to the plain version on its own image and that image
+   to the CPU's; then the bf16 generator's image,
    with the convs on cuDNN and with K2, against the JAX package's image
    committed under ``tests/data``;
 7. serving: the synthesis service with the flagship weights behind its
@@ -76,8 +83,14 @@ K2_SHAPES = [
     (8, 32, 256, 256, 256),   # D block_4 conv0/conv1, G block_4 conv1
     (8, 16, 128, 256, 256),   # D block_3 conv0/conv1, G block_3 conv1
 ]
+# G block_6's trunk conv, C_in = 64: the reference's paired kernel
+# (pallas_conv.py:_conv3x3_pallas_paired) computes it, and the gate keeps
+# it off both packages' paths; K2 is checked and timed there, not counted.
+K2P_SHAPE = (8, 128, 1024, 64, 64)
 K3_SHAPE = (8, 128, 1024, 128)   # (B, H, W, C1): D block_6
 TRAIN_STEPS = 3
+F32_NOTE_RUNS = 4   # repeats of the f32 note, card vs CPU
+K1_REPEATS = 10     # repeated K1 calls on one image, held to the same bits
 T0 = time.perf_counter()
 
 
@@ -148,12 +161,11 @@ def library_spectrum(image, m2l, config):
 
 
 def synthesis_bound(batch, m2l):
-    """Least time for K1's function on these inputs: (bound_ms, bound_by,
-    dense_ms). ``m2l`` is the banded mel pseudo-inverse, at most two
-    nonzeros per column, so the function needs one FMA per nonzero and
-    row in each of its two products, and reads m2l as its nonzeros (an f32
-    value and an int32 row index each). ``dense_ms`` is the operations time
-    of the two dense 1024-deep GEMMs this design runs instead."""
+    """Least time for K1's function on these inputs: (bound_ms, bound_by).
+    ``m2l`` is the banded mel pseudo-inverse, at most two nonzeros per
+    column, so the function needs one FMA per nonzero and row in each of
+    its two products, and reads m2l as its nonzeros (an f32 value and an
+    int32 row index each)."""
     import torch
 
     rows, mel, freq = batch * 128, m2l.shape[0], m2l.shape[1]
@@ -161,14 +173,14 @@ def synthesis_bound(batch, m2l):
     flops = 4.0 * rows * nnz             # two products, 2 operations per FMA
     nbytes = 4.0 * (rows * mel * 2 + 2 * rows * freq) + 8.0 * nnz
     t_ops, t_bytes = flops / F32_PEAK_FLOPS, nbytes / HBM_BYTES_PER_S
-    dense_ms = 1e3 * 4.0 * rows * mel * freq / F32_PEAK_FLOPS
     return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes", dense_ms)
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_synthesis_kernel(device, config):
+def check_synthesis_kernel(device, config, resources):
     """K1 against its plain version at every rung of the service's batch
-    ladder (1, 4, 16); the B=16 times are the headline."""
+    ladder (1, 4, 16); the B=16 times are the headline. ``resources`` (the
+    kernel's ``ptxas`` report) goes into each rung's line."""
     import torch
 
     from gansynth_tpu_torch.kernels.synthesis import (
@@ -177,9 +189,10 @@ def check_synthesis_kernel(device, config):
     )
     from gansynth_tpu_torch.ops.spectral import istft_rect, mel_pinv
     from gansynth_tpu_torch.serve import batch_ladder
+    from gansynth_tpu_torch.utils.kernel_ab import graph_ms
 
     m2l = mel_pinv(config, device)
-    result = {"max_abs_err": 0.0}
+    result = {"max_abs_err": 0.0, "rungs": []}
     for batch in batch_ladder(MAX_BATCH):
         gen = torch.Generator(device=device).manual_seed(1000 + batch)
         image = torch.rand((batch, 128, 1024, 2), generator=gen,
@@ -191,6 +204,12 @@ def check_synthesis_kernel(device, config):
         if not err <= 2e-2:
             raise AssertionError(f"K1 B={batch}: spectrum max err {err:.3e} "
                                  "> 2e-2")
+        # the kernel fixes every sum's order, so a repeat gives the same bits
+        for _ in range(K1_REPEATS):
+            re2, im2 = synthesis_spectrum(image, config)
+            if not (torch.equal(re, re2) and torch.equal(im, im2)):
+                raise AssertionError(f"K1 B={batch}: a repeated call on the "
+                                     "same image gave other bits")
         wave_err, snr = wave_check(istft_rect(pre, pim, config),
                                    istft_rect(re, im, config),
                                    f"K1 B={batch}")
@@ -198,19 +217,27 @@ def check_synthesis_kernel(device, config):
         lib_err = max(float((lre - pre).abs().max()),
                       float((lim - pim).abs().max()))
         result["max_abs_err"] = max(result["max_abs_err"], err)
-        times = {
-            "ms": cuda_ms(lambda: synthesis_spectrum(image, config)),
-            "plain_ms": cuda_ms(lambda: synthesis_spectrum_plain(image, config)),
-            "library_ms": cuda_ms(lambda: library_spectrum(image, m2l, config)),
-        }
-        bound_ms, bound_by, dense_ms = synthesis_bound(batch, m2l)
-        times.update(bound_ms=bound_ms, bound_by=bound_by)
-        print(json.dumps({"k1_check": {
-            "batch": batch, "spectrum_max_abs_err": err,
-            "wave_max_abs_err": wave_err, "wave_snr_db": snr,
-            "library_max_abs_err": lib_err, **times,
-            "dense_gemm_ops_ms": dense_ms,
-        }}), flush=True)
+        # ms: back-to-back eager calls, as for K2 and K3 (where the device's
+        # time is below the host's cost of a call, the host sets it);
+        # graph_ms: the same calls replayed from a CUDA graph, the device's
+        # time with the host's cost taken away
+        times = {}
+        for key, fn in (
+                ("", lambda: synthesis_spectrum(image, config)),
+                ("plain_", lambda: synthesis_spectrum_plain(image, config)),
+                ("library_", lambda: library_spectrum(image, m2l, config))):
+            times[f"{key}ms"] = cuda_ms(fn)
+            times[f"{key}graph_ms"] = graph_ms(fn)
+        bound_ms, bound_by = synthesis_bound(batch, m2l)
+        times.update(bound_ms=bound_ms, bound_by=bound_by,
+                     fraction_of_bound=bound_ms / times["ms"],
+                     graph_fraction_of_bound=bound_ms / times["graph_ms"])
+        row = {"batch": batch, "spectrum_max_abs_err": err,
+               "wave_max_abs_err": wave_err, "wave_snr_db": snr,
+               "library_max_abs_err": lib_err, **times}
+        print(json.dumps({"k1_check": {**row, "resources": resources}}),
+              flush=True)
+        result["rungs"].append(row)
         result.update(times)   # the last rung's, B=16, are kept
     return result
 
@@ -302,6 +329,33 @@ TIMES = ("ms", "plain_ms", "library_ms", "library_ms_autotuned", "bound_ms",
 CONV_BARS = {"float32": (1e-4, 1e-4, 1e-3), "bfloat16": (3e-2, 3e-2, 3e-2)}
 
 
+def conv_times(x, wt):
+    """K2's bf16 times at x [B, H, W, C_in], wt [C_out, C_in, 3, 3]: the
+    kernel, the plain version, ``F.conv2d`` (also under
+    ``cudnn.benchmark``), the bound and the fraction of it reached."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_plain, conv3x3_same
+
+    b, h, w, c_in = x.shape
+    c_out = wt.shape[0]
+    nbytes = 2.0 * (b * h * w * (c_in + c_out) + 9 * c_in * c_out)
+    bound_ms, bound_by = bound(2.0 * b * h * w * 9 * c_in * c_out, nbytes,
+                               BF16_PEAK_FLOPS)
+
+    def library():
+        return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), wt,
+                                          padding=1)
+
+    out = {"ms": cuda_ms(lambda: conv3x3_same(x, wt), iters=20),
+           "plain_ms": cuda_ms(lambda: conv3x3_plain(x, wt), iters=20),
+           "library_ms": cuda_ms(library, iters=20),
+           "library_ms_autotuned": autotuned_ms(library),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    out["fraction_of_bound"] = bound_ms / out["ms"]
+    return out
+
+
 def check_conv_kernel(device):
     """K2 against F.conv2d at every shape of the training step, both
     types; the second order at a small shape; bf16 times."""
@@ -336,22 +390,7 @@ def check_conv_kernel(device):
             key = "max_abs_err" if name == "bfloat16" else "max_abs_err_f32"
             result[key] = max(result[key], errs["y"])
             if dtype == torch.bfloat16:
-                xd, wd = x.detach(), wt.detach()
-                nbytes = 2.0 * (b * h * w * (c_in + c_out) + 9 * c_in * c_out)
-                bound_ms, bound_by = bound(2.0 * b * h * w * 9 * c_in * c_out,
-                                           nbytes, BF16_PEAK_FLOPS)
-
-                def library():
-                    return torch.nn.functional.conv2d(
-                        xd.permute(0, 3, 1, 2), wd, padding=1)
-
-                row.update(
-                    ms=cuda_ms(lambda: conv3x3_same(xd, wd), iters=20),
-                    plain_ms=cuda_ms(lambda: conv3x3_plain(xd, wd), iters=20),
-                    library_ms=cuda_ms(library, iters=20),
-                    library_ms_autotuned=autotuned_ms(library),
-                    bound_ms=bound_ms, bound_by=bound_by)
-                row["fraction_of_bound"] = bound_ms / row["ms"]
+                row.update(conv_times(x.detach(), wt.detach()))
             del x, wt, r, y, gx, gw, y_p, gx_p, gw_p
         print(json.dumps({"k2_check": row}), flush=True)
         result["shapes"].append(row)
@@ -370,9 +409,32 @@ def check_conv_kernel(device):
     err, ref = close_err(gp(conv3x3_same), gp(conv3x3_plain))
     require(err, ref, 1e-3, "K2 second order")
     result["second_order_err"] = err
+    result["measured_only"] = check_conv_off_path(device, K2P_SHAPE)
     result.update({k: result["shapes"][0][k] for k in TIMES})
     result["shape"] = result["shapes"][0]["shape"]
     return result
+
+
+def check_conv_off_path(device, shape):
+    """K2 at a shape the gate keeps off the path: the forward against
+    ``F.conv2d`` in bf16 and f32, and the bf16 times. Its launches are not
+    counted anywhere."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.conv import conv3x3_plain, conv3x3_same
+
+    b, h, w, c_in, c_out = shape
+    row = {"shape": list(shape)}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        x = randn((b, h, w, c_in), device, 1, dtype)
+        wt = randn((c_out, c_in, 3, 3), device, 2, dtype, (9 * c_in) ** -0.5)
+        err, ref = close_err(conv3x3_same(x, wt), conv3x3_plain(x, wt))
+        require(err, ref, CONV_BARS[name][0], f"K2 {name} {shape} y")
+        row[name] = {"y": err}
+    row.update(conv_times(x, wt))   # x, wt: the bf16 pair, made last
+    print(json.dumps({"k2_check": {**row, "measured_only": True}}), flush=True)
+    return row
 
 
 def check_dblock_kernel(device):
@@ -580,8 +642,17 @@ def render_flagship(device, config, generator, stage):
 
     import torch
 
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
-    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+    from gansynth_tpu_torch.kernels.synthesis import (
+        synthesis_spectrum,
+        synthesis_spectrum_plain,
+    )
+    from gansynth_tpu_torch.ops.spectral import istft_rect
+    from gansynth_tpu_torch.synth.random import seeded_latents
+    from gansynth_tpu_torch.synth.sampler import (
+        make_latent_sampler,
+        make_seeded_sampler,
+        pitch_to_onehot,
+    )
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
 
     before = synthesis_spectrum.launches
@@ -598,20 +669,49 @@ def render_flagship(device, config, generator, stage):
     if synthesis_spectrum.launches <= before:
         raise AssertionError("flagship render did not launch K1")
 
-    # One float32 note on the card (K1, cuDNN) against the same note on
-    # the CPU (the plain path).
+    # One float32 note on the card (K1, cuDNN) against the same note on the
+    # CPU (the plain path), F32_NOTE_RUNS times. Each run also holds K1 to
+    # the plain version on the card on that run's own image, and that image
+    # to the CPU's, which tells a deviation of K1 from one of the generator.
     cfg32 = dataclasses.replace(
         config, model=dataclasses.replace(config.model,
                                           compute_dtype="float32"))
     npz = os.path.join(FLAGSHIP, "ema.npz")
-    on_card = make_seeded_sampler(
+    z = seeded_latents([7], cfg32.model.latent_dim)
+    labels = pitch_to_onehot(torch.tensor([60]), cfg32).numpy()
+    want, want_image = make_latent_sampler(
+        cfg32, load_ema_generator(npz, cfg32.model, "cpu")[0], stage)(z, labels)
+    on_card = make_latent_sampler(
         cfg32, load_ema_generator(npz, cfg32.model, device)[0], stage)
-    on_cpu = make_seeded_sampler(
-        cfg32, load_ema_generator(npz, cfg32.model, "cpu")[0], stage)
-    got = on_card([7], [60]).cpu()
-    want = on_cpu([7], [60])
-    err, snr = wave_check(want, got, "f32 note, card vs CPU")
-    return rms.tolist(), err, snr
+    runs, first_image = [], None
+    for run in range(F32_NOTE_RUNS):
+        got, image = on_card(z, labels)
+        with torch.inference_mode():
+            re, im = synthesis_spectrum(image, cfg32.audio)
+            pre, pim = synthesis_spectrum_plain(image, cfg32.audio)
+            k1_wave = istft_rect(re, im, cfg32.audio).cpu()
+            plain_wave = istft_rect(pre, pim, cfg32.audio).cpu()
+        image = image.cpu()
+        first_image = image if first_image is None else first_image
+        err, snr = wave_check(want, got.cpu(), f"f32 note run {run}, card vs CPU")
+        k1_err, k1_snr = wave_check(plain_wave, k1_wave,
+                                    f"f32 note run {run}, K1 vs plain")
+        gen_err, gen_snr = wave_check(want, plain_wave,
+                                      f"f32 note run {run}, plain on the card "
+                                      "vs CPU")
+        runs.append({
+            "run": run, "wave_max_abs_err": err, "wave_snr_db": snr,
+            "k1_spectrum_max_abs_err": max(float((re - pre).abs().max()),
+                                           float((im - pim).abs().max())),
+            "k1_wave_max_abs_err": k1_err, "k1_wave_snr_db": k1_snr,
+            "plain_wave_max_abs_err": gen_err, "plain_wave_snr_db": gen_snr,
+            "image_max_abs_err": float((image - want_image).abs().max()),
+            "image_vs_run0_max_abs_diff":
+                float((image - first_image).abs().max()),
+        })
+    print(json.dumps({"f32_note_runs": runs}), flush=True)
+    worst = max(runs, key=lambda r: r["wave_max_abs_err"])
+    return rms.tolist(), worst["wave_max_abs_err"], worst["wave_snr_db"]
 
 
 def bf16_vs_reference(device, config):
@@ -725,7 +825,10 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.kernels import _build
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.kernels.synthesis import (
+        _device_taps,
+        synthesis_spectrum,
+    )
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
     from gansynth_tpu_torch.utils.device import (
         card_info,
@@ -742,6 +845,7 @@ def main() -> int:
     phase("card", t, f"{torch.cuda.get_device_name(0)}; torch "
           f"{torch.__version__}, CUDA {torch.version.cuda}")
 
+    config = run_config(FLAGSHIP)
     t = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
         libs = list(pool.map(_build.load_library, KERNELS))
@@ -763,15 +867,22 @@ def main() -> int:
         if entry["function"] == "dblock_nhwc_bf16_wgmma":
             entry["dynamic_smem_bytes"] = \
                 lib_of["dblock"].dblock_nhwc_bf16_smem_bytes()
+    k1_span_max = _device_taps(config.audio, device)[3]
+    for entry in resources["synthesis_spectrum"]:
+        entry["dynamic_smem_bytes"] = \
+            lib_of["synthesis_spectrum"].synthesis_spectrum_smem_bytes(
+                k1_span_max)
     phase("build", t, ", ".join(KERNELS))
 
-    config = run_config(FLAGSHIP)
     t = time.perf_counter()
-    k1 = check_synthesis_kernel(device, config.audio)
+    k1 = check_synthesis_kernel(device, config.audio,
+                                resources["synthesis_spectrum"])
     phase("K1 vs plain", t, f"max abs err {k1['max_abs_err']:.3e} "
           "(bar 2e-2; waves 5e-3, 40 dB); "
-          f"B=16 kernel {k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, "
-          f"library {k1['library_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+          f"B=16 kernel {k1['ms']:.4f} ms (graph {k1['graph_ms']:.4f} ms), "
+          f"plain {k1['plain_ms']:.4f} ms (graph {k1['plain_graph_ms']:.4f}), "
+          f"library {k1['library_ms']:.4f} ms (graph "
+          f"{k1['library_graph_ms']:.4f}), bound {k1['bound_ms']:.4f} ms "
           f"({k1['bound_by']}) ({card})")
 
     t = time.perf_counter()
@@ -797,8 +908,8 @@ def main() -> int:
     rms, err, snr = render_flagship(device, config, generator, stage)
     phase("flagship render", t, f"step {step} stage {stage} "
           f"{config.model.compute_dtype}; rms {[round(r, 4) for r in rms]}; "
-          f"f32 card vs CPU max err {err:.3e}, SNR {snr:.1f} dB "
-          "(bar 5e-3, 40 dB)")
+          f"f32 card vs CPU, worst of {F32_NOTE_RUNS} runs, max err "
+          f"{err:.3e}, SNR {snr:.1f} dB (bar 5e-3, 40 dB)")
 
     t = time.perf_counter()
     gaps = bf16_vs_reference(device, config)
@@ -841,11 +952,11 @@ def main() -> int:
         "replaces": "gansynth_tpu/kernels/pallas_synthesis.py:72",
         "launches": launches,
         "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"],
-        "bound_ms": k1["bound_ms"],
-        "bound_by": k1["bound_by"],
-        "library_ms": k1["library_ms"],
+        **{k: k1[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
+                              "bound_ms", "bound_by", "fraction_of_bound",
+                              "graph_fraction_of_bound", "library_ms",
+                              "library_graph_ms")},
+        "rungs": k1["rungs"],
         "resources": resources["synthesis_spectrum"],
     }, {
         "name": "conv3x3_same",
@@ -861,6 +972,7 @@ def main() -> int:
         **{k: k2[k] for k in TIMES},
         "shapes": [{"shape": row["shape"], **{k: row[k] for k in TIMES}}
                    for row in k2["shapes"]],
+        "measured_only": k2["measured_only"],
         "resources": resources["conv3x3"],
     }, {
         "name": "fused_dblock",

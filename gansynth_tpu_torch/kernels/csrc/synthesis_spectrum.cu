@@ -11,157 +11,183 @@
 //   phi = P @ m2l                                    [B*T, F]
 //   re  = mag * cos(phi),  im = mag * sin(phi)
 //
-// What bounds it on an H100: bytes. m2l is banded (at most two nonzeros per
-// column, 2042 of its 1M entries), so the function needs one FMA per nonzero
-// and row in each product: 4*2048*2042 = 17 MFLOP at B=16, T=128, M=F=1024,
-// against ~34 MB of compulsory traffic (image, Re, Im, m2l's nonzeros), about
-// 10 us at 3.35 TB/s. This design does not use the band: it runs two dense
-// f32 GEMMs of (B*T) x M x F that share m2l, 4*2048*1024*1024 = 8.6 GFLOP,
-// about 0.13 ms at the 67 TFLOP/s f32 peak, so it cannot come near that bound.
-// The GEMMs stay in full f32 on the FMA units: the phase reaches ~128*pi,
-// and TF32's 10-bit mantissa would put its error far outside the tolerance.
-// For the same reason this file is built without --use_fast_math and uses
-// the accurate expf/sincosf, whose error does not grow with the argument.
+// What bounds it on an H100: bytes. m2l is banded: linear bin f has at most
+// two nonzeros, in two neighbouring mel rows (2042 of its 1M entries), so
+// each product is a gather of <= 2 taps per output. The function reads the
+// image once and writes Re and Im once, ~34 MB at B=16, T=128, M=F=1024:
+// about 10 us at 3.35 TB/s, against 17 MFLOP of products.
 //
-// Design (simple and right first; two launches):
-//  (a) synthesis_prologue: one thread per (batch, mel column) walks the T
-//      frames, so the time cumsum is a running sum in a register; it writes
-//      E and P into two scratch planes. Neighbouring threads touch
-//      neighbouring columns, so every load and store is coalesced. The
-//      Pallas kernel's lower-triangular matmul for the cumsum is not needed.
-//  (b) synthesis_gemm: a shared-memory-tiled f32 GEMM. m2l (4 MiB) does not
-//      fit in shared memory, so the kernel tiles over N and K; each 16x64
-//      tile of m2l is loaded once and used for both E @ m2l and P @ m2l.
-//      Each thread keeps a 4x4 block of both products in registers. The
-//      epilogue applies sqrt / cos / sin and writes Re and Im.
+// Design: one launch, no scratch in device memory. One block per (batch
+// element, strip of kStrip linear bins); the batch element varies fastest
+// in the grid, so the strips with the widest mel spans (the low end) are
+// dispatched first and the short ones fill the tail. The wrapper hands over the tap
+// table (for each f, its <= 2 mel indices in ascending order and their
+// weights; index -1 pads a column with fewer taps) and, for each strip, the
+// span of mel columns its taps touch [m_lo, m_lo + span), m_lo and span
+// even, so that the span is a whole number of 16-byte (x0, y0, x1, y1)
+// pairs. The block walks the T frames in chunks of kChunk, two buffers
+// deep; for each chunk it
+//  1. has the next chunk's copies in flight (cp.async, 16 bytes a thread,
+//     neighbouring threads on neighbouring addresses) while it works on
+//     this one;
+//  2. turns each (x, y) into (E, mif * pi) in place, all threads at once;
+//  3. runs the time cumsum: one thread per mel column of the span walks the
+//     chunk's frames in order with the running sum in a register, carried
+//     to the next chunk, the product and the sum rounded separately, as a
+//     plain cumsum does;
+//  4. gives each thread a linear bin and every (kThreads / kStrip)-th frame:
+//     it gathers its <= 2 taps of (E, P) from shared memory, ascending in
+//     mel as a dense dot over ascending k takes them, and writes Re and Im,
+//     neighbouring threads on neighbouring bins.
+// A strip at the low end spans up to 62 mel columns (the mel bands are
+// narrower than a linear bin there), at the high end 6: the block's
+// dynamic shared memory is 2 * kChunk * span_max * 8 bytes (31 KB), so up
+// to seven blocks of 256 threads share an SM and their loads, exps, sums
+// and stores overlap. With kStrip = 16, B=1 already launches 64 blocks.
+//
+// Accuracy: magnitudes reach ~1e3 and phases ~128 pi, so this file is built
+// without --use_fast_math and uses the accurate expf/sincosf/sqrtf, whose
+// error does not grow with the argument. For each output the sums are
+// fmaf(E1, w1, E0 * w0), the very roundings of a dense FMA dot over
+// ascending k, since the zero weights add exact zeros.
 //
 // Plain C interface for ctypes: raw pointers, sizes, the cudaStream_t as
-// void*, and the cudaError_t of the launches as the return value. The
-// caller allocates the outputs and the two scratch planes.
+// void*, and the cudaError_t of the launch as the return value. The caller
+// allocates the outputs.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr float kPi = 3.14159265358979323846f;
+constexpr int kStrip = 16;                    // linear bins per block
+constexpr int kThreads = 256;
+constexpr int kFrameStep = kThreads / kStrip;  // frames between a thread's outputs
+constexpr int kChunk = 32;                    // frames staged at a time
 
-constexpr int kPrologueThreads = 128;
-
-__global__ void __launch_bounds__(kPrologueThreads)
-synthesis_prologue(const float2* __restrict__ image, float* __restrict__ e_out,
-                   float* __restrict__ p_out, int frames, int mel_bins,
-                   float a, float b) {
-  const int col = blockIdx.x * blockDim.x + threadIdx.x;
-  if (col >= mel_bins) return;
-  const size_t base = static_cast<size_t>(blockIdx.y) * frames * mel_bins + col;
-  float phase = 0.0f;
-  for (int t = 0; t < frames; ++t) {
-    const size_t i = base + static_cast<size_t>(t) * mel_bins;
-    const float2 px = image[i];
-    e_out[i] = expf(__fmaf_rn(px.x, a, b));
-    // Round the product and the sum separately, as a plain cumsum does.
-    phase = __fadd_rn(phase, __fmul_rn(px.y, kPi));
-    p_out[i] = phase;
-  }
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
 }
 
-constexpr int BM = 64;   // rows of the output tile (frames of the batch)
-constexpr int BN = 64;   // columns of the output tile (linear bins)
-constexpr int BK = 16;   // depth of one shared-memory stage (mel bins)
-constexpr int TM = 4;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int kGemmThreads = (BM / TM) * (BN / TN);  // 256
+// Starts the copies of frames [t0, t0 + count) of the strip's mel span into
+// `buf` ([count][span] (x, y) pairs) and commits them as one group.
+__device__ __forceinline__ void load_chunk(float4* buf, const float4* src,
+                                           int row_pairs, int pairs, int t0,
+                                           int count) {
+  const int n = count * pairs;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int t = i / pairs;
+    cp_async16(&buf[i],
+               src + static_cast<size_t>(t0 + t) * row_pairs + (i - t * pairs));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-__global__ void __launch_bounds__(kGemmThreads)
-synthesis_gemm(const float* __restrict__ e_in, const float* __restrict__ p_in,
-               const float* __restrict__ m2l, float* __restrict__ re,
-               float* __restrict__ im, int n, int k, float eps) {
-  // E and P tiles are stored transposed ([k][row]) so a thread reads its
-  // TM rows of one k as one float4.
-  __shared__ __align__(16) float e_s[BK][BM];
-  __shared__ __align__(16) float p_s[BK][BM];
-  __shared__ __align__(16) float w_s[BK][BN];
+__global__ void __launch_bounds__(kThreads)
+synthesis_spectrum_gather(const float4* __restrict__ image,
+                          const int2* __restrict__ tap_index,
+                          const float2* __restrict__ tap_weight,
+                          const int2* __restrict__ strips,
+                          float* __restrict__ re, float* __restrict__ im,
+                          int frames, int mel_bins, int freq_bins,
+                          int span_max, float a, float b, float eps) {
+  // Two buffers of [kChunk][span] (x, y) pairs, turned into (E, P) in place.
+  extern __shared__ float4 smem4[];
 
   const int tid = threadIdx.x;
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
+  const int strip = blockIdx.y;
+  const int batch = blockIdx.x;
+  const int2 st = strips[strip];   // (m_lo, span), both even
+  const int m_lo = st.x;
+  const int span = st.y;
+  const int pairs = span / 2;
+  const int row_pairs = mel_bins / 2;
+  const int buf_pairs = kChunk * span_max / 2;
+  const float4* src = image + static_cast<size_t>(batch) * frames * row_pairs
+                      + m_lo / 2;
 
-  // Loader coordinates: 64 rows x 16 k of E and P, 16 k x 64 columns of
-  // m2l, one float4 of each per thread.
-  const int a_row = tid / (BK / 4);
-  const int a_k = (tid % (BK / 4)) * 4;
-  const int w_k = tid / (BN / 4);
-  const int w_col = (tid % (BN / 4)) * 4;
+  // This thread's linear bin, its taps as columns of the span, and its
+  // outputs' rows.
+  const int f = strip * kStrip + tid % kStrip;
+  const int2 idx = tap_index[f];
+  const float2 w = tap_weight[f];
+  const int i0 = idx.x - m_lo;
+  const int i1 = idx.y - m_lo;
+  float* re_out = re + static_cast<size_t>(batch) * frames * freq_bins + f;
+  float* im_out = im + static_cast<size_t>(batch) * frames * freq_bins + f;
 
-  float acc_e[TM][TN];
-  float acc_p[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      acc_e[i][j] = 0.0f;
-      acc_p[i][j] = 0.0f;
+  float phase = 0.0f;   // the running phase sum of column tid (tid < span)
+  load_chunk(smem4, src, row_pairs, pairs, 0, min(kChunk, frames));
+  for (int t0 = 0, k = 0; t0 < frames; t0 += kChunk, k ^= 1) {
+    const int count = min(kChunk, frames - t0);
+    float4* buf4 = smem4 + k * buf_pairs;
+    float2* buf = reinterpret_cast<float2*>(buf4);
+    // 1. the next chunk's copies go out; wait for this chunk's
+    if (t0 + kChunk < frames) {
+      load_chunk(smem4 + (k ^ 1) * buf_pairs, src, row_pairs, pairs,
+                 t0 + kChunk, min(kChunk, frames - t0 - kChunk));
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
-  }
-
-  const float* e_row = e_in + static_cast<size_t>(row0 + a_row) * k + a_k;
-  const float* p_row = p_in + static_cast<size_t>(row0 + a_row) * k + a_k;
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    const float4 ev = *reinterpret_cast<const float4*>(e_row + k0);
-    const float4 pv = *reinterpret_cast<const float4*>(p_row + k0);
-    e_s[a_k + 0][a_row] = ev.x;
-    e_s[a_k + 1][a_row] = ev.y;
-    e_s[a_k + 2][a_row] = ev.z;
-    e_s[a_k + 3][a_row] = ev.w;
-    p_s[a_k + 0][a_row] = pv.x;
-    p_s[a_k + 1][a_row] = pv.y;
-    p_s[a_k + 2][a_row] = pv.z;
-    p_s[a_k + 3][a_row] = pv.w;
-    *reinterpret_cast<float4*>(&w_s[w_k][w_col]) =
-        *reinterpret_cast<const float4*>(
-            m2l + static_cast<size_t>(k0 + w_k) * n + col0 + w_col);
     __syncthreads();
 
+    // 2. (x, y) -> (exp(x * a + b), y * pi)
+    for (int i = tid; i < count * pairs; i += kThreads) {
+      float4 v = buf4[i];
+      v.x = expf(__fmaf_rn(v.x, a, b));
+      v.y = __fmul_rn(v.y, kPi);
+      v.z = expf(__fmaf_rn(v.z, a, b));
+      v.w = __fmul_rn(v.w, kPi);
+      buf4[i] = v;
+    }
+    __syncthreads();
+
+    // 3. the time cumsum of each mel column, in frame order, carried from
+    //    chunk to chunk in a register (the loads of 8 frames go out before
+    //    the 8 dependent adds)
+    if (tid < span) {
+      for (int t = 0; t < count; t += 8) {
+        float v[8];
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 e4 = *reinterpret_cast<const float4*>(&e_s[kk][ty * TM]);
-      const float4 p4 = *reinterpret_cast<const float4*>(&p_s[kk][ty * TM]);
-      const float4 w4 = *reinterpret_cast<const float4*>(&w_s[kk][tx * TN]);
-      const float e[TM] = {e4.x, e4.y, e4.z, e4.w};
-      const float p[TM] = {p4.x, p4.y, p4.z, p4.w};
-      const float w[TN] = {w4.x, w4.y, w4.z, w4.w};
+        for (int j = 0; j < 8; ++j) {
+          v[j] = t + j < count ? buf[(t + j) * span + tid].y : 0.0f;
+        }
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          acc_e[i][j] = fmaf(e[i], w[j], acc_e[i][j]);
-          acc_p[i][j] = fmaf(p[i], w[j], acc_p[i][j]);
+        for (int j = 0; j < 8; ++j) {
+          if (t + j < count) {
+            phase = __fadd_rn(phase, v[j]);
+            buf[(t + j) * span + tid].y = phase;
+          }
         }
       }
     }
     __syncthreads();
-  }
 
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    float out_re[TN];
-    float out_im[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const float mag = sqrtf(fmaxf(acc_e[i][j], 0.0f) + eps);
+    // 4. gather <= 2 taps per (frame, linear bin), polar -> rect
+    for (int t = tid / kStrip; t < count; t += kFrameStep) {
+      float mag2 = 0.0f;
+      float phi = 0.0f;
+      if (idx.x >= 0) {
+        const float2 e = buf[t * span + i0];
+        mag2 = __fmul_rn(e.x, w.x);
+        phi = __fmul_rn(e.y, w.x);
+      }
+      if (idx.y >= 0) {
+        const float2 e = buf[t * span + i1];
+        mag2 = __fmaf_rn(e.x, w.y, mag2);
+        phi = __fmaf_rn(e.y, w.y, phi);
+      }
+      const float mag = sqrtf(fmaxf(mag2, 0.0f) + eps);
       float s, c;
-      sincosf(acc_p[i][j], &s, &c);
-      out_re[j] = mag * c;
-      out_im[j] = mag * s;
+      sincosf(phi, &s, &c);
+      const size_t o = static_cast<size_t>(t0 + t) * freq_bins;
+      re_out[o] = mag * c;
+      im_out[o] = mag * s;
     }
-    const size_t o =
-        static_cast<size_t>(row0 + ty * TM + i) * n + col0 + tx * TN;
-    *reinterpret_cast<float4*>(re + o) =
-        make_float4(out_re[0], out_re[1], out_re[2], out_re[3]);
-    *reinterpret_cast<float4*>(im + o) =
-        make_float4(out_im[0], out_im[1], out_im[2], out_im[3]);
+    __syncthreads();   // the buffer is refilled two chunks on
   }
 }
 
@@ -169,34 +195,38 @@ synthesis_gemm(const float* __restrict__ e_in, const float* __restrict__ p_in,
 
 extern "C" {
 
-// image [batch, frames, mel_bins, 2], m2l [mel_bins, freq_bins], the two
-// scratch planes [batch, frames, mel_bins] and the outputs re, im
-// [batch, frames, freq_bins], all f32, contiguous and 16-byte aligned.
-// Needs batch*frames % 64 == 0, freq_bins % 64 == 0, mel_bins % 16 == 0.
-int synthesis_spectrum_f32(const void* image, const void* m2l, void* e_scratch,
-                           void* p_scratch, void* re, void* im, int batch,
-                           int frames, int mel_bins, int freq_bins, float a,
-                           float b, float eps, void* stream) {
-  const int rows = batch * frames;
-  if (batch <= 0 || frames <= 0 || rows % BM != 0 || freq_bins % BN != 0 ||
-      mel_bins % BK != 0 || mel_bins <= 0 || freq_bins <= 0) {
+// Dynamic shared memory of one block for a widest strip span of `span_max`
+// mel columns: two chunks of kChunk frames.
+int synthesis_spectrum_smem_bytes(int span_max) {
+  return 2 * kChunk * span_max * static_cast<int>(sizeof(float2));
+}
+
+// image [batch, frames, mel_bins, 2] f32, 16-byte aligned; tap_index
+// [freq_bins, 2] int32 (ascending mel per bin, -1 pads); tap_weight
+// [freq_bins, 2] f32; strips [num_strips, 2] int32 (m_lo, span), both even,
+// span <= span_max, one row per kStrip = 16 linear bins (num_strips * 16 ==
+// freq_bins); re, im [batch, frames, freq_bins] f32. All contiguous. Needs
+// mel_bins even, and span_max small enough that the block's shared memory
+// fits the default 48 KB without an opt-in (span_max <= 96).
+int synthesis_spectrum_f32(const void* image, const void* tap_index,
+                           const void* tap_weight, const void* strips,
+                           int num_strips, int span_max, void* re, void* im,
+                           int batch, int frames, int mel_bins, int freq_bins,
+                           float a, float b, float eps, void* stream) {
+  const int smem = synthesis_spectrum_smem_bytes(span_max);
+  if (batch <= 0 || frames <= 0 || mel_bins <= 0 || mel_bins % 2 != 0 ||
+      num_strips <= 0 || num_strips * kStrip != freq_bins || span_max <= 0 ||
+      span_max % 2 != 0 || span_max > mel_bins || span_max > kThreads ||
+      smem > 48 * 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const dim3 pro_grid((mel_bins + kPrologueThreads - 1) / kPrologueThreads,
-                      batch);
-  synthesis_prologue<<<pro_grid, kPrologueThreads, 0, s>>>(
-      static_cast<const float2*>(image), static_cast<float*>(e_scratch),
-      static_cast<float*>(p_scratch), frames, mel_bins, a, b);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const dim3 gemm_grid(freq_bins / BN, rows / BM);
-  synthesis_gemm<<<gemm_grid, kGemmThreads, 0, s>>>(
-      static_cast<const float*>(e_scratch), static_cast<const float*>(p_scratch),
-      static_cast<const float*>(m2l), static_cast<float*>(re),
-      static_cast<float*>(im), freq_bins, mel_bins, eps);
+  const dim3 grid(batch, num_strips);
+  synthesis_spectrum_gather<<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(image), static_cast<const int2*>(tap_index),
+      static_cast<const float2*>(tap_weight), static_cast<const int2*>(strips),
+      static_cast<float*>(re), static_cast<float*>(im), frames, mel_bins,
+      freq_bins, span_max, a, b, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -5,13 +5,16 @@
 mel-IF image [B, 128, 1024, 2] f32 becomes the linear spectrum (Re, Im)
 [B, 128, 1024] f32 that feeds the iSTFT. For a CUDA tensor it launches the
 CUDA kernel of ``csrc/synthesis_spectrum.cu`` (built by ``nvcc`` on first
-use); for a CPU tensor it calls :func:`synthesis_spectrum_plain`. There is
-no fallback from one to the other.
+use), one launch that gathers each linear bin's <= 2 mel taps (the
+nonzeros of the mel pseudo-inverse, from :func:`tap_tables`); for a CPU
+tensor it calls :func:`synthesis_spectrum_plain`. There is no fallback
+from one to the other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -21,7 +24,65 @@ from gansynth_tpu_torch.ops.spectral import mel_pinv
 from gansynth_tpu_torch.utils.config import AudioConfig, scale
 
 _PI = np.pi
-_SYMBOL = "synthesis_spectrum_f32"
+_SYMBOLS = {torch.float32: "synthesis_spectrum_f32"}
+TAPS = 2     # mel taps per linear bin that the kernel takes
+STRIP = 16   # linear bins per block (kStrip in the source, which checks
+             # that the strip table has freq_bins / 16 rows)
+
+
+def tap_tables(m2l: np.ndarray):
+    """The nonzeros of ``m2l`` [M, F] by column: ``(index, weight)``, both
+    [F, TAPS] and C-contiguous, int32 and float32. Row f lists the mel rows
+    of column f's nonzeros in ascending order and their values; a column
+    with fewer than ``TAPS`` nonzeros is padded with index -1 and weight 0.
+    Raises if a column has more than ``TAPS`` nonzeros."""
+    m2l = np.asarray(m2l, dtype=np.float32)
+    freq_bins = m2l.shape[1]
+    f, m = np.nonzero(m2l.T)            # by column, rows ascending
+    counts = np.bincount(f, minlength=freq_bins)
+    if counts.max(initial=0) > TAPS:
+        worst = int(np.argmax(counts))
+        raise ValueError(
+            f"column {worst} of the mel pseudo-inverse has {counts[worst]} "
+            f"nonzeros; the synthesis kernel takes at most {TAPS}"
+        )
+    rank = np.arange(f.size) - np.searchsorted(f, f)
+    index = np.full((freq_bins, TAPS), -1, dtype=np.int32)
+    weight = np.zeros((freq_bins, TAPS), dtype=np.float32)
+    index[f, rank] = m
+    weight[f, rank] = m2l[m, f]
+    return index, weight
+
+
+def strip_spans(index: np.ndarray) -> np.ndarray:
+    """``(m_lo, span)`` [F / STRIP, 2] int32: the mel columns
+    ``[m_lo, m_lo + span)`` that the taps of each strip of ``STRIP`` linear
+    bins touch, with ``m_lo`` and ``span`` rounded out to even numbers (the
+    kernel loads (x, y) pairs of two mel columns, 16 bytes at a time)."""
+    freq_bins = index.shape[0]
+    if freq_bins % STRIP:
+        raise ValueError(f"{freq_bins} linear bins are not a whole number "
+                         f"of strips of {STRIP}")
+    spans = np.zeros((freq_bins // STRIP, 2), dtype=np.int32)
+    for s in range(freq_bins // STRIP):
+        used = index[s * STRIP:(s + 1) * STRIP]
+        used = used[used >= 0]
+        if used.size:
+            lo = int(used.min()) // 2 * 2
+            width = int(used.max()) + 1 - lo
+            spans[s] = (lo, width + width % 2)
+    return spans
+
+
+@functools.lru_cache(maxsize=16)
+def _device_taps(config: AudioConfig, device: torch.device):
+    """``(index, weight, strips, span_max)`` of the config's mel
+    pseudo-inverse, the tables on ``device``."""
+    index, weight = tap_tables(mel_pinv(config, "cpu").numpy())
+    strips = strip_spans(index)
+    span_max = max(2, int(strips[:, 1].max()))
+    return (*(torch.from_numpy(a).to(device) for a in (index, weight, strips)),
+            span_max)
 
 
 def synthesis_spectrum_plain(image: torch.Tensor, config: AudioConfig):
@@ -60,13 +121,12 @@ def _check(image: torch.Tensor, config: AudioConfig) -> None:
         raise ValueError("synthesis_spectrum needs a contiguous image")
 
 
-def _kernel():
-    lib = load_library("synthesis_spectrum").lib
-    fn = getattr(lib, _SYMBOL)
+def _kernel(dtype: torch.dtype):
+    fn = getattr(load_library("synthesis_spectrum").lib, _SYMBOLS[dtype])
     if fn.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                       f32, f32, f32, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, i32, i32, i32,
+                       i32, f32, f32, f32, ptr]
         fn.restype = ctypes.c_int
     return fn
 
@@ -76,22 +136,20 @@ def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
 
     Launches the CUDA kernel for a CUDA tensor (and counts the launch in
     ``synthesis_spectrum.launches``); takes the plain version for a CPU
-    tensor; raises on any other device or on a shape, type or layout the
-    kernel does not take.
+    tensor; raises on any other device or on a shape, type, layout or
+    alignment the kernel does not take.
     """
     _check(image, config)
     if image.device.type == "cpu":
         return synthesis_spectrum_plain(image, config)
     if image.device.type != "cuda":
         raise ValueError(f"synthesis_spectrum: unsupported device {image.device}")
-    if image.data_ptr() % 8:
-        raise ValueError("synthesis_spectrum needs an 8-byte aligned image")
+    if image.data_ptr() % 16:
+        raise ValueError("synthesis_spectrum needs a 16-byte aligned image")
     batch, frames, mel_bins, _ = image.shape
     freq_bins = config.num_freq_bins
-    fn = _kernel()
-    m2l = mel_pinv(config, image.device)
-    scratch = torch.empty((2, batch, frames, mel_bins), dtype=torch.float32,
-                          device=image.device)
+    fn = _kernel(image.dtype)
+    index, weight, strips, span_max = _device_taps(config, image.device)
     re = torch.empty((batch, frames, freq_bins), dtype=torch.float32,
                      device=image.device)
     im = torch.empty_like(re)
@@ -100,9 +158,9 @@ def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
     b = (config.logmel_max + config.logmel_min) / 2.0
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = fn(image.data_ptr(), m2l.data_ptr(), scratch[0].data_ptr(),
-                 scratch[1].data_ptr(), re.data_ptr(), im.data_ptr(),
-                 batch, frames, mel_bins, freq_bins, a, b,
+        err = fn(image.data_ptr(), index.data_ptr(), weight.data_ptr(),
+                 strips.data_ptr(), strips.shape[0], span_max, re.data_ptr(),
+                 im.data_ptr(), batch, frames, mel_bins, freq_bins, a, b,
                  config.logmel_eps, stream)
     if err != 0:
         raise RuntimeError(

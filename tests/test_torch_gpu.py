@@ -55,7 +55,7 @@ def _wave_bar(want, got):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("batch", [1, 4, 16])
 def test_synthesis_kernel_matches_plain(cuda_device, batch):
     x = _image(batch, cuda_device, batch)
     before = K.synthesis_spectrum.launches
@@ -82,6 +82,63 @@ def test_image_to_wave_takes_the_kernel_on_cuda(cuda_device):
         K.synthesis_spectrum(
             x.reshape(-1)[1:1 + x.numel() // 2].reshape(1, 128, 1024, 2),
             CFG)
+
+
+@pytest.mark.gpu
+def test_synthesis_kernel_padded_taps_give_the_plain_value(cuda_device):
+    """Bins 0 and 1023 have no mel taps, bins 1021 and 1022 one; the
+    kernel pads their tap tables with index -1 and weight 0 and must read
+    nothing through the padding. Every mel column those bins do not use is
+    poisoned (exp overflows to inf, the IF is NaN), so a read through a
+    padded tap would turn them into NaN; they must equal the plain version
+    on the clean image (0 taps: exactly (sqrt(eps), 0))."""
+    index, _ = K.tap_tables(K.mel_pinv(CFG, "cpu").numpy())
+    bins = [0, 1021, 1022, 1023]
+    assert (index[bins] >= 0).sum(axis=1).tolist() == [0, 1, 1, 0]
+    used = torch.zeros(CFG.num_mel_bins, dtype=torch.bool)
+    used[[int(m) for m in index[bins].reshape(-1) if m >= 0]] = True
+    clean = _image(2, cuda_device, 11)
+    poisoned = clean.clone()
+    poisoned[:, :, ~used.to(cuda_device), 0] = 1e4
+    poisoned[:, :, ~used.to(cuda_device), 1] = float("nan")
+    re, im = K.synthesis_spectrum(poisoned, CFG)
+    pre, pim = K.synthesis_spectrum_plain(clean, CFG)
+    torch.cuda.synchronize()
+    for got, want in ((re, pre), (im, pim)):
+        assert bool(torch.isfinite(got[..., bins]).all())
+        torch.testing.assert_close(got[..., bins], want[..., bins], rtol=0,
+                                   atol=2e-2)
+    for f in (0, 1023):
+        torch.testing.assert_close(re[..., f], pre[..., f], rtol=0, atol=0)
+        assert bool((im[..., f] == 0).all()) and bool((pim[..., f] == 0).all())
+
+
+@pytest.mark.gpu
+def test_synthesis_entry_refuses_a_strip_table_or_span_it_cannot_take(
+        cuda_device):
+    """The C entry checks the strip table's row count against its own strip
+    width and the shared memory a span needs against the 48 KB default; it
+    returns cudaErrorInvalidValue (1) and launches nothing otherwise."""
+    fn = K._kernel(torch.float32)
+    index, weight, strips, span_max = K._device_taps(CFG, cuda_device)
+    x = _image(1, cuda_device, 13)
+    re = torch.empty((1, 128, CFG.num_freq_bins), device=cuda_device)
+    im = torch.empty_like(re)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(num_strips, span):
+        return fn(x.data_ptr(), index.data_ptr(), weight.data_ptr(),
+                  strips.data_ptr(), num_strips, span, re.data_ptr(),
+                  im.data_ptr(), 1, 128, CFG.num_mel_bins, CFG.num_freq_bins,
+                  1.0, 0.0, CFG.logmel_eps, stream)
+
+    rows = strips.shape[0]
+    assert rows * K.STRIP == CFG.num_freq_bins
+    assert call(rows, span_max) == 0
+    torch.cuda.synchronize()
+    assert call(rows // 2, span_max) == 1
+    assert call(rows * 2, span_max) == 1
+    assert call(rows, 98) == 1   # 2 * 32 * 98 * 8 bytes > 48 KB
 
 
 def _rand(shape, device, seed, dtype=torch.float32, scale=1.0):

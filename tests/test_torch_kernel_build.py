@@ -105,7 +105,8 @@ def test_build_dir_outside_a_checkout(tmp_path, monkeypatch):
 
 def test_kernel_ab_covers_the_step_shapes_and_needs_a_card(monkeypatch):
     """The A/B tool times K2 at every bf16 shape ``chip_smoke.py`` holds
-    it to, and refuses to run without a card."""
+    it to, K1 at every batch rung of the service, and refuses to run
+    without a card."""
     import importlib.util
     import os
 
@@ -118,6 +119,12 @@ def test_kernel_ab_covers_the_step_shapes_and_needs_a_card(monkeypatch):
     spec.loader.exec_module(smoke)
     assert set(smoke.K2_SHAPES) <= set(kernel_ab.SHAPES["conv3x3"])
     assert smoke.K3_SHAPE in kernel_ab.SHAPES["dblock"]
+    from gansynth_tpu_torch.serve import batch_ladder
+
+    assert set(batch_ladder(16)) <= {s[0] for s in
+                                     kernel_ab.SHAPES["synthesis"]}
+    assert set(kernel_ab.SHAPES) == set(kernel_ab.MODULES) \
+        == set(kernel_ab.BARS)
     monkeypatch.setattr(kernel_ab.torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         kernel_ab.main(["conv3x3", "other.cu"])
