@@ -13,14 +13,17 @@ raises, so the exit code is non-zero):
    critic block) with plain ``nvcc``, one process each, all at once, and
    print their ``ptxas`` lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
-   of the service, and to its own bits over ``K1_REPEATS`` repeats; time
+   of the service and at the training loop's sample batch
+   (``SAMPLE_BATCH``), and to its own bits over ``K1_REPEATS`` repeats; time
    the kernel, the plain version and the PyTorch library form with CUDA
    events: back-to-back eager calls (``ms``, as for K2 and K3) and the
    same calls replayed from a CUDA graph (``graph_ms``, the device's time
    with the host's cost of a call taken away);
 4. hold K2 to ``F.conv2d`` (TF32 off) at every shape the stage-6 training
    step gives it, in bf16 and f32: the forward, and dx and dw through
-   autograd; a second-order (gradient-penalty) gradient at a small shape;
+   autograd; the forward at the generator's shapes in the training
+   loop's sample dumps (``K2_SAMPLE_SHAPES``); a second-order
+   (gradient-penalty) gradient at a small shape;
    time each shape in bf16; and, measured only, the C_in = 64 trunk conv
    of generator block 6 (``K2P_SHAPE``), which the routing gate keeps off
    the path as the reference's does;
@@ -46,11 +49,27 @@ raises, so the exit code is non-zero):
 9. the same step in float32 from one state (so one drawn noise), once
    with the kernels and once with ``conv_kernel="xla"`` /
    ``dblock_kernel="xla"``, metric by metric;
-10. one JSON line with every kernel's launches on its path, error,
-    times (K2 at every shape; the library call also under
-    ``cudnn.benchmark``; the fraction of the bound reached) and its
-    registers, spills and shared memory from ``ptxas``; the total
-    seconds; and the result line.
+10. the training entry point, ``cli train --synthetic --device-cache``,
+    in this process, on a run directory under ``build/smoke_train/``:
+    the flagship config with the kernels on and unroll, checkpoint, log
+    and sample cadence 10, seeded with a port checkpoint of the
+    flagship's state at step 415000 (stage 6, batch 8, bf16, released).
+    Run A takes 20 steps with K1's, K2's and K3's launches counted (K1
+    through the loop's sample dumps) and must write 2 checkpoints, an
+    ``ema.npz`` at 415020, stage 6, and 3 wavs a dump; a repeat of run A
+    and run B (the same 20 steps as two calls of 10, the second resuming
+    at 415010) end in parameters whose distance B-vs-A is at most twice
+    A-vs-repeat (0 and 0 where the step is deterministic); then ``cli
+    train`` as a process of its own, with a STOP file present, must stop
+    after one superstep with exit 0, consume the file and leave
+    checkpoint 415010. One ``{"train_loop": ...}`` line: the loop's ms a
+    step from ``steps_per_sec`` beside phase 8's mean, launches a step,
+    peak memory and the card;
+11. one JSON line with every kernel's launches on its path (and on the
+    training loop's), error, times (K2 at every shape; the library call
+    also under ``cudnn.benchmark``; the fraction of the bound reached)
+    and its registers, spills and shared memory from ``ptxas``; the
+    total seconds; and the result line.
 
 The script exits non-zero, printing no result, where CUDA is not
 available or the port is not beside it. It writes nothing outside
@@ -61,6 +80,8 @@ import concurrent.futures
 import json
 import math
 import os
+import shutil
+import subprocess
 import sys
 import threading
 import time
@@ -87,8 +108,23 @@ K2_SHAPES = [
 # (pallas_conv.py:_conv3x3_pallas_paired) computes it, and the gate keeps
 # it off both packages' paths; K2 is checked and timed there, not counted.
 K2P_SHAPE = (8, 128, 1024, 64, 64)
+# The training loop's sample dumps render train.sample_pitches (three in
+# the flagship's config) through the generator and K1, so K1 is checked at
+# this batch too, and K2 at the generator convs it gates on at this batch
+# (conv1 of blocks 5/4/3), forward only.
+SAMPLE_BATCH = 3
+K2_SAMPLE_SHAPES = [
+    (SAMPLE_BATCH, 64, 512, 128, 128),   # G block_5 conv1
+    (SAMPLE_BATCH, 32, 256, 256, 256),   # G block_4 conv1
+    (SAMPLE_BATCH, 16, 128, 256, 256),   # G block_3 conv1
+]
 K3_SHAPE = (8, 128, 1024, 128)   # (B, H, W, C1): D block_6
 TRAIN_STEPS = 3
+LOOP_DIR = os.path.join(ROOT, "build", "smoke_train")
+LOOP_STEPS = 20     # run A: two supersteps of LOOP_CADENCE
+LOOP_CADENCE = 10   # unroll, checkpoint_every, log_every, sample_every
+LOOP_NOTES = 256    # the fixture notes `cli train --synthetic` writes and
+                    # caches (the flagship's cache held 2048)
 F32_NOTE_RUNS = 4   # repeats of the f32 note, card vs CPU
 K1_REPEATS = 10     # repeated K1 calls on one image, held to the same bits
 T0 = time.perf_counter()
@@ -179,7 +215,8 @@ def synthesis_bound(batch, m2l):
 
 def check_synthesis_kernel(device, config, resources):
     """K1 against its plain version at every rung of the service's batch
-    ladder (1, 4, 16); the B=16 times are the headline. ``resources`` (the
+    ladder (1, 4, 16) and at the training loop's sample batch
+    (SAMPLE_BATCH); the B=16 times are the headline. ``resources`` (the
     kernel's ``ptxas`` report) goes into each rung's line."""
     import torch
 
@@ -193,7 +230,7 @@ def check_synthesis_kernel(device, config, resources):
 
     m2l = mel_pinv(config, device)
     result = {"max_abs_err": 0.0, "rungs": []}
-    for batch in batch_ladder(MAX_BATCH):
+    for batch in sorted({*batch_ladder(MAX_BATCH), SAMPLE_BATCH}):
         gen = torch.Generator(device=device).manual_seed(1000 + batch)
         image = torch.rand((batch, 128, 1024, 2), generator=gen,
                            device=device) * 2 - 1
@@ -358,12 +395,14 @@ def conv_times(x, wt):
 
 def check_conv_kernel(device):
     """K2 against F.conv2d at every shape of the training step, both
-    types; the second order at a small shape; bf16 times."""
+    types; the forward at the sample dumps' shapes; the second order at a
+    small shape; bf16 times."""
     import torch
 
     from gansynth_tpu_torch.kernels.conv import conv3x3_plain, conv3x3_same
 
-    result = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "shapes": []}
+    result = {"max_abs_err": 0.0, "max_abs_err_f32": 0.0, "shapes": [],
+              "sample_shapes": []}
     for shape in K2_SHAPES:
         b, h, w, c_in, c_out = shape
         row = {"shape": list(shape)}
@@ -394,6 +433,23 @@ def check_conv_kernel(device):
             del x, wt, r, y, gx, gw, y_p, gx_p, gw_p
         print(json.dumps({"k2_check": row}), flush=True)
         result["shapes"].append(row)
+
+    for shape in K2_SAMPLE_SHAPES:
+        b, h, w, c_in, c_out = shape
+        row = {"shape": list(shape)}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            x = randn((b, h, w, c_in), device, 7, dtype)
+            wt = randn((c_out, c_in, 3, 3), device, 8, dtype,
+                       (9 * c_in) ** -0.5)
+            err, ref = close_err(conv3x3_same(x, wt), conv3x3_plain(x, wt))
+            require(err, ref, CONV_BARS[name][0],
+                    f"K2 {name} {shape} y (sample dumps)")
+            row[name] = {"y": err}
+            key = "max_abs_err" if name == "bfloat16" else "max_abs_err_f32"
+            result[key] = max(result[key], err)
+        print(json.dumps({"k2_check": row}), flush=True)
+        result["sample_shapes"].append(row)
 
     # The WGAN-GP shape: d/dw of ||d(sum conv(x, w) r)/dx||^2 (f32, 1e-3).
     x = randn((2, 8, 16, 16), device, 4, torch.float32).requires_grad_()
@@ -593,6 +649,211 @@ def train_steps(device):
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "metrics": metrics}
     print(json.dumps({"train": out}), flush=True)
+    return out
+
+
+def loop_seed():
+    """``build/smoke_train/seed``: ``train_config.json`` (the flagship's,
+    kernels on, cadence LOOP_CADENCE), the fixture TFRecords ``cli train
+    --synthetic`` would write, and a port checkpoint of
+    ``state_from_ema(ema.npz)`` at step 415000."""
+    import dataclasses
+
+    import torch
+
+    from gansynth_tpu_torch.cli import run_config
+    from gansynth_tpu_torch.data.fixtures import write_synthetic_tfrecords
+    from gansynth_tpu_torch.train.state import state_from_ema
+    from gansynth_tpu_torch.utils.checkpoint import Checkpointer
+
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    seed = os.path.join(LOOP_DIR, "seed")
+    os.makedirs(seed)
+    config = run_config(FLAGSHIP).with_overrides({
+        "model": {"conv_kernel": "pallas", "dblock_kernel": "pallas"},
+        "train": {k: LOOP_CADENCE for k in ("unroll", "checkpoint_every",
+                                            "log_every", "sample_every")}})
+    with open(os.path.join(seed, "train_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+    write_synthetic_tfrecords(os.path.join(seed, "fixtures.tfrecord"),
+                              num_examples=LOOP_NOTES,
+                              seed=config.train.seed)
+    state = state_from_ema(config, os.path.join(FLAGSHIP, "ema.npz"), "cuda")
+    if state.step != 415000:
+        raise AssertionError(f"the seed state is at step {state.step}")
+    Checkpointer(os.path.join(seed, "checkpoints")).save(state.step, state)
+    del state
+    torch.cuda.empty_cache()
+    return config
+
+
+def loop_dir(name):
+    """A fresh copy of the seed run directory."""
+    path = os.path.join(LOOP_DIR, name)
+    shutil.copytree(os.path.join(LOOP_DIR, "seed"), path)
+    return path
+
+
+def loop_argv(run, steps):
+    return ["train", "--model-dir", run, "--synthetic", "--device-cache",
+            "--num-steps", str(steps), "--config",
+            os.path.join(run, "train_config.json")]
+
+
+def loop_params(run, step):
+    """G, D and EMA of checkpoint ``step`` as three flat float32 vectors."""
+    import torch
+
+    payload = torch.load(os.path.join(run, "checkpoints", str(step),
+                                      "state.pt"),
+                         map_location="cuda", weights_only=True)
+    return {net: torch.cat([v.float().reshape(-1)
+                            for v in payload[net].values()])
+            for net in ("g", "d", "ema")}
+
+
+def loop_metrics(run):
+    with open(os.path.join(run, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def train_loop(card, single_step_ms):
+    """The flagship's training entry point, ``cli train --synthetic
+    --device-cache``, through ``cli.main`` in this process and as a
+    process of its own; see phase 10 in the docstring."""
+    import numpy as np
+    import torch
+
+    from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+
+    config = loop_seed()
+    if len(config.train.sample_pitches) != SAMPLE_BATCH:
+        raise AssertionError("K1 and K2 were checked at the sample batch "
+                             f"{SAMPLE_BATCH}, the loop renders "
+                             f"{len(config.train.sample_pitches)} pitches")
+    start, end = 415000, 415000 + LOOP_STEPS
+    mid = start + LOOP_CADENCE
+
+    run_a = loop_dir("a")
+    torch.cuda.reset_peak_memory_stats()
+    synthesis_spectrum.launches = 0
+    conv3x3_same.launches.update(forward=0, input_grad=0)
+    fused_dblock.launches = 0
+    t = time.perf_counter()
+    if cli.main(loop_argv(run_a, LOOP_STEPS)) != 0:
+        raise AssertionError("cli train (run A) failed")
+    torch.cuda.synchronize()
+    run_a_s = time.perf_counter() - t
+    launches = {"synthesis_spectrum": synthesis_spectrum.launches,
+                "conv3x3_forward": conv3x3_same.launches["forward"],
+                "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
+                "dblock": fused_dblock.launches}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    bad = [k for k, v in launches.items() if v == 0]
+    if bad:
+        raise AssertionError(f"the training loop never launched {bad}")
+
+    ckpts = sorted(int(p) for p in os.listdir(os.path.join(run_a,
+                                                           "checkpoints"))
+                   if p.isdigit())
+    if ckpts != [start, mid, end]:
+        raise AssertionError(f"run A's checkpoints: {ckpts}")
+    with np.load(os.path.join(run_a, "ema.npz")) as z:
+        ema_meta = (int(z["__step__"]), int(z["__stage__"]))
+    if ema_meta != (end, 6):
+        raise AssertionError(f"run A's ema.npz is (step, stage) {ema_meta}")
+    wavs = sorted(os.listdir(os.path.join(run_a, "samples")))
+    for step in (mid, end):
+        got = [w for w in wavs if w.startswith(f"step{step:08d}_")]
+        if len(got) != len(config.train.sample_pitches):
+            raise AssertionError(f"samples at {step}: {got}")
+    records = loop_metrics(run_a)
+    if [r["step"] for r in records] != [mid, end]:
+        raise AssertionError(f"run A logged {records}")
+    for r in records:
+        if r["stage"] != 6 or not all(math.isfinite(v) for v in r.values()):
+            raise AssertionError(f"run A's metrics: {r}")
+
+    run_r = loop_dir("a_repeat")
+    if cli.main(loop_argv(run_r, LOOP_STEPS)) != 0:
+        raise AssertionError("cli train (repeat of run A) failed")
+    run_b = loop_dir("b")
+    for _ in range(2):
+        if cli.main(loop_argv(run_b, LOOP_CADENCE)) != 0:
+            raise AssertionError("cli train (run B) failed")
+    records_b = loop_metrics(run_b)
+    if [r["step"] for r in records_b] != [mid, end]:
+        raise AssertionError(f"run B logged {records_b}")
+    a, rep, b = (loop_params(r, end) for r in (run_a, run_r, run_b))
+    a_vs_repeat = {k: float((a[k] - rep[k]).abs().max()) for k in a}
+    b_vs_a = {k: float((b[k] - a[k]).abs().max()) for k in a}
+    for k in a:
+        if not b_vs_a[k] <= 2 * a_vs_repeat[k]:
+            raise AssertionError(
+                f"resumed run B differs from run A by {b_vs_a} (max abs), "
+                f"more than twice the repeat's {a_vs_repeat}")
+    del a, rep, b
+    torch.cuda.empty_cache()
+
+    run_s = loop_dir("stop")
+    with open(os.path.join(run_s, "STOP"), "w") as f:
+        f.write("requested by chip_smoke.py\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gansynth_tpu_torch.cli",
+         *loop_argv(run_s, 2 * LOOP_STEPS)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    stop_s = time.perf_counter() - t
+    ckpts = sorted(int(p) for p in os.listdir(os.path.join(run_s,
+                                                           "checkpoints"))
+                   if p.isdigit())
+    if (proc.returncode != 0 or os.path.exists(os.path.join(run_s, "STOP"))
+            or ckpts != [start, mid]
+            or "graceful stop" not in proc.stdout):
+        raise AssertionError(
+            f"STOP run: exit {proc.returncode}, checkpoints {ckpts}\n"
+            f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+
+    # the host's share of an inner step: its noise and its batch indices
+    # (threefry in numpy), 100 steps each
+    from gansynth_tpu_torch.train.state import train_key
+    from gansynth_tpu_torch.train.step import cached_batch_indices, step_noise
+
+    rng, batch = train_key(config.train.seed), config.train.batch_for_stage(6)
+    t = time.perf_counter()
+    for i in range(100):
+        step_noise(rng, start + i, batch, config.model.latent_dim)
+    noise_ms = (time.perf_counter() - t) * 10
+    t = time.perf_counter()
+    for i in range(100):
+        cached_batch_indices(rng, start + i, batch, LOOP_NOTES)
+    indices_ms = (time.perf_counter() - t) * 10
+
+    per_step = {k: v / LOOP_STEPS for k, v in launches.items()}
+    out = {
+        "steps": LOOP_STEPS, "unroll": LOOP_CADENCE,
+        "batch": config.train.batch_for_stage(6),
+        "compute_dtype": config.model.compute_dtype,
+        "run_a_seconds": run_a_s,
+        "steps_per_sec": [r["steps_per_sec"] for r in records],
+        "ms_per_step": [1000.0 / r["steps_per_sec"] for r in records],
+        "ms_per_step_resumed_call": 1000.0 / records_b[1]["steps_per_sec"],
+        "single_step_mean_ms": single_step_ms,
+        "host_noise_ms_per_step": noise_ms,
+        "host_indices_ms_per_step": indices_ms,
+        "launches": launches, "launches_per_step": per_step,
+        "b_vs_a_max_abs": b_vs_a, "a_vs_repeat_max_abs": a_vs_repeat,
+        "ema_npz": {"step": ema_meta[0], "stage": ema_meta[1]},
+        "stop_process_seconds": stop_s,
+        "peak_mem_gib": peak_gib, "cached_notes": LOOP_NOTES, "card": card,
+    }
+    print(json.dumps({"train_loop": out}), flush=True)
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
     return out
 
 
@@ -943,14 +1204,31 @@ def main() -> int:
           f"{cmp['worst_scaled_err']:.3e} of max(1, |metric|) (bar "
           f"{STEP_BAR})")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    loop = train_loop(card, train["mean_step_ms"])
+    phase("train loop", t, f"cli train --device-cache, {loop['steps']} "
+          f"steps at stage 6, unroll {loop['unroll']}: "
+          f"{[round(v, 1) for v in loop['ms_per_step']]} ms/step by "
+          f"steps_per_sec (a resumed call's "
+          f"{loop['ms_per_step_resumed_call']:.1f}), single step "
+          f"{loop['single_step_mean_ms']:.1f} ms; launches per step "
+          f"{loop['launches_per_step']}; B vs A {loop['b_vs_a_max_abs']}, "
+          f"A vs repeat {loop['a_vs_repeat_max_abs']}; STOP process "
+          f"{loop['stop_process_seconds']:.1f}s; peak "
+          f"{loop['peak_mem_gib']:.2f} GiB with {loop['cached_notes']} "
+          f"notes cached ({card})")
+
     conv_launches = (train["launches"]["conv3x3_forward"]
                      + train["launches"]["conv3x3_input_grad"])
+    loop_launches = loop["launches"]
     kernels = [{
         "name": "synthesis_spectrum",
         "route": "cuda",
         "source": "gansynth_tpu_torch/kernels/csrc/synthesis_spectrum.cu",
         "replaces": "gansynth_tpu/kernels/pallas_synthesis.py:72",
         "launches": launches,
+        "loop_launches": loop_launches["synthesis_spectrum"],
         "max_abs_err": k1["max_abs_err"],
         **{k: k1[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
                               "bound_ms", "bound_by", "fraction_of_bound",
@@ -966,6 +1244,8 @@ def main() -> int:
         "launches": conv_launches,
         "launches_forward": train["launches"]["conv3x3_forward"],
         "launches_input_grad": train["launches"]["conv3x3_input_grad"],
+        "loop_launches": (loop_launches["conv3x3_forward"]
+                          + loop_launches["conv3x3_input_grad"]),
         "max_abs_err": k2["max_abs_err"],
         "max_abs_err_f32": k2["max_abs_err_f32"],
         "shape": k2["shape"],
@@ -980,6 +1260,7 @@ def main() -> int:
         "source": "gansynth_tpu_torch/kernels/csrc/dblock.cu",
         "replaces": "gansynth_tpu/kernels/pallas_dblock.py:198",
         "launches": train["launches"]["dblock"],
+        "loop_launches": loop_launches["dblock"],
         "max_abs_err": k3["max_abs_err"],
         "max_abs_err_f32": k3["max_abs_err_f32"],
         "shape": k3["shape"],

@@ -1,20 +1,40 @@
-"""Command line of the port: ``python -m gansynth_tpu_torch.cli serve``.
+"""Command line of the port: ``python -m gansynth_tpu_torch.cli <command>``.
 
-Counterpart of ``gansynth_tpu/cli.py``'s ``serve`` subcommand for a run
-directory holding ``ema.npz`` and ``train_config.json`` (the persisted
-config is the source of truth for the model and audio settings, as in the
-reference). The other subcommands are not ported yet.
+Counterpart of ``gansynth_tpu/cli.py``. Ported subcommands:
+
+- ``train``      progressive WGAN-GP training from TFRecords (or synthetic
+                 fixtures with ``--synthetic``), checkpointed, resumable;
+- ``stop``       ask a running ``train``/``supervise`` to checkpoint and
+                 exit 0 at its next superstep boundary;
+- ``supervise``  ``train`` under a watchdog that restarts it from the
+                 latest checkpoint when its heartbeat stalls;
+- ``export-ema`` the latest checkpoint's EMA generator as ``ema.npz``;
+- ``fixtures``   synthetic NSynth-schema TFRecords (no TensorFlow);
+- ``serve``      the HTTP synthesis service from a run's ``ema.npz``.
+
+``train``'s flags and defaults are the reference's, apart from what the
+port refuses with an error (exit 2): ``--ingest tf`` (there is no
+TensorFlow beside the card; the native reader is the default) and
+``--data-parallel``, ``--multihost`` and ``--mbstd per-replica`` (data
+parallelism is ``ROADMAP.md`` queue 1 item 8). Commands that run a model
+take ``--device`` (default ``cuda``; ``cpu`` to run without a card).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
+import time
 from typing import Optional, Sequence
 
-from gansynth_tpu_torch.utils.config import Config
+import numpy as np
+
+from gansynth_tpu_torch.utils.config import Config, ModelConfig, TrainConfig
+
+_QUEUE_ITEM_8 = "data parallelism is not ported yet (ROADMAP.md queue 1 item 8)"
 
 
 def run_config(model_dir: str) -> Config:
@@ -25,6 +45,203 @@ def run_config(model_dir: str) -> Config:
         return Config()
     with open(saved) as f:
         return Config().with_overrides(json.load(f))
+
+
+def _parse_stage_steps(text):
+    """Comma-separated per-stage step counts -> tuple (None when unset)."""
+    if not text:
+        return None
+    return tuple(int(s) for s in text.split(","))
+
+
+def _build_config(args) -> Config:
+    """The effective config: flags, then the ``--config`` JSON on top.
+    ``--dump-config`` prints it (the reference's JSON for the same flags)
+    and exits."""
+    train = TrainConfig(
+        batch_size=args.batch_size,
+        stage_batch_sizes=_parse_stage_steps(args.stage_batch_sizes),
+        learning_rate=args.learning_rate,
+        fade_steps=args.fade_steps,
+        stable_steps=args.stable_steps,
+        stage_fade_steps=_parse_stage_steps(args.stage_fade_steps),
+        stage_stable_steps=_parse_stage_steps(args.stage_stable_steps),
+        unroll=args.unroll,
+        device_cache_layout=getattr(args, "device_cache_layout",
+                                    "replicate"),
+        fused_critic=args.fused_critic,
+        pitch_consistency_weight=args.pitch_consistency,
+        pitch_consistency_release_step=args.pitch_consistency_release,
+        seed=args.seed,
+        checkpoint_every=args.checkpoint_every,
+        log_every=args.log_every,
+        sample_every=getattr(args, "sample_every", 0),
+    )
+    model = ModelConfig(
+        latent_dim=args.latent_dim,
+        fmap_base=args.fmap_base,
+        fmap_max=args.fmap_max,
+        compute_dtype=args.compute_dtype,
+    )
+    config = Config(model=model, train=train)
+    if args.config:
+        with open(args.config) as f:
+            config = config.with_overrides(json.load(f))
+    if args.dump_config:
+        print(json.dumps(dataclasses.asdict(config), indent=2,
+                         sort_keys=True))
+        raise SystemExit(0)
+    return config
+
+
+def _add_common_train_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--config", help="JSON file with nested "
+                   '{"audio": {...}, "model": {...}, "train": {...}} '
+                   "overrides, applied on top of the flags")
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--stage-batch-sizes", default=None,
+                   help="comma-separated per-stage global batch sizes (one "
+                   "per stage; overrides --batch-size)")
+    p.add_argument("--learning-rate", type=float, default=8e-4)
+    p.add_argument("--latent-dim", type=int, default=256)
+    p.add_argument("--fmap-base", type=int, default=4096)
+    p.add_argument("--fmap-max", type=int, default=256)
+    p.add_argument("--compute-dtype", default="float32",
+                   choices=["float32", "bfloat16"],
+                   help="compute dtype of the networks (params stay "
+                   "float32)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="torch.autograd anomaly detection (raises where a "
+                   "backward pass makes a NaN)")
+    p.add_argument("--fade-steps", type=int, default=800_000)
+    p.add_argument("--stable-steps", type=int, default=800_000)
+    p.add_argument("--stage-fade-steps", default=None,
+                   help="comma-separated per-stage fade steps (one per "
+                   "stage; overrides --fade-steps)")
+    p.add_argument("--stage-stable-steps", default=None,
+                   help="comma-separated per-stage stabilization steps")
+    p.add_argument("--unroll", type=int, default=1,
+                   help="train steps per superstep (one host call; the "
+                   "metrics are read once per superstep at most)")
+    p.add_argument("--fused-critic", default="none",
+                   choices=["none", "pair", "all"],
+                   help="the reference's schedule of the critic passes "
+                   "(the same function; the port runs them one by one)")
+    p.add_argument("--pitch-consistency", type=float, default=0.0,
+                   help="weight of the generator-side harmonic-template "
+                   "pitch CE (ops/harmonic.py); 0 = off")
+    p.add_argument("--pitch-consistency-release", type=int, default=None,
+                   metavar="STEP",
+                   help="global step at which the anchor comes off in one "
+                   "run: from STEP on the pitch-consistency weight is 0 and "
+                   "the AC-GAN head stops training on fake batches")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--checkpoint-every", type=int, default=2000)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--dump-config", action="store_true",
+                   help="print the effective config as --config-compatible "
+                   "JSON and exit")
+
+
+def _add_device_flag(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' to run without "
+                   "a card)")
+
+
+def _refused(args) -> Optional[str]:
+    """Why ``train`` refuses these flags, or None."""
+    if args.ingest != "native":
+        return (f"--ingest {args.ingest} needs TensorFlow, which the port "
+                "does not use; the port reads TFRecords with its native "
+                "reader (--ingest native, the default)")
+    if args.data_parallel:
+        return f"--data-parallel: {_QUEUE_ITEM_8}"
+    if args.multihost:
+        return f"--multihost: {_QUEUE_ITEM_8}"
+    if args.mbstd != "global":
+        return f"--mbstd {args.mbstd}: {_QUEUE_ITEM_8}"
+    if args.device_cache_layout != "replicate":
+        return f"--device-cache-layout {args.device_cache_layout}: " \
+            f"{_QUEUE_ITEM_8}"
+    return None
+
+
+def cmd_train(args) -> int:
+    from gansynth_tpu_torch.data.fixtures import write_synthetic_tfrecords
+    from gansynth_tpu_torch.data.native_tfrecord import make_native_iterator
+    from gansynth_tpu_torch.train.loop import train
+    from gansynth_tpu_torch.utils.device import resolve_device, set_precision
+
+    refused = _refused(args)
+    if refused:
+        print(f"error: {refused}", file=sys.stderr)
+        return 2
+    config = _build_config(args)
+    device = resolve_device(args.device)
+    set_precision()
+    if args.debug_nans:
+        import torch
+
+        torch.autograd.set_detect_anomaly(True)
+    # The effective config rides with the run: serve and export-ema read it.
+    os.makedirs(args.model_dir, exist_ok=True)
+    with open(os.path.join(args.model_dir, "train_config.json"), "w") as f:
+        json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+    files = list(args.data or [])
+    if args.synthetic and not files:
+        # Per-run fixture file: concurrent runs never rewrite it mid-read,
+        # and a resume reads the same data.
+        path = os.path.join(args.model_dir, "fixtures.tfrecord")
+        if not os.path.exists(path):
+            write_synthetic_tfrecords(path, num_examples=256,
+                                      seed=config.train.seed)
+        files = [path]
+    if not files:
+        print("error: pass --data <tfrecord...> or --synthetic",
+              file=sys.stderr)
+        return 2
+
+    # Resume position of the data stream (position == batch count == step).
+    resume_step = 0
+    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
+    if os.path.isdir(ckpt_dir):
+        steps = [int(p) for p in os.listdir(ckpt_dir) if p.isdigit()]
+        resume_step = max(steps, default=0)
+
+    acoustic = not args.synthetic
+    device_dataset, data, data_factory = None, None, None
+    if args.device_cache:
+        waves, pitches = [], []
+        for w, p in make_native_iterator(
+                files, config, acoustic_only=acoustic,
+                families=args.instrument_families, batch_size=64,
+                shuffle=False, repeat=False, drop_remainder=False):
+            waves.append(w)
+            pitches.append(p)
+        device_dataset = (np.concatenate(waves), np.concatenate(pitches))
+        print(f"device cache: {device_dataset[0].shape[0]} examples "
+              f"({device_dataset[0].nbytes / 2**20:.0f} MiB) on {device}",
+              flush=True)
+    elif config.train.stage_batch_sizes is not None:
+        def data_factory(stage, global_batch, skip):
+            return make_native_iterator(
+                files, config, acoustic_only=acoustic,
+                families=args.instrument_families, batch_size=global_batch,
+                seed=config.train.seed + 7919 * stage, skip_batches=skip)
+    else:
+        data = make_native_iterator(
+            files, config, acoustic_only=acoustic,
+            families=args.instrument_families,
+            batch_size=config.train.batch_size, seed=config.train.seed,
+            skip_batches=resume_step)
+    state = train(config, data, num_steps=args.num_steps,
+                  workdir=args.model_dir, device_dataset=device_dataset,
+                  data_position=resume_step, data_factory=data_factory,
+                  device=device)
+    print(f"trained to step {int(state.step)}; checkpoints in "
+          f"{args.model_dir}/checkpoints", flush=True)
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -59,9 +276,150 @@ def cmd_serve(args) -> int:
     return 0
 
 
+# (flag name, parser default) of the model flags a restore depends on:
+# a flag that differs from its default was set by the caller.
+_MODEL_FLAG_DEFAULTS = (
+    ("latent_dim", 256),
+    ("fmap_base", 4096),
+    ("fmap_max", 256),
+    ("compute_dtype", "float32"),
+)
+
+
+def _restore_config(args, config: Config) -> Config:
+    """The config a run was trained with (its ``train_config.json``), with
+    the model flags the caller set and the ``--config`` JSON on top; the
+    flags' ``config`` when the run has no ``train_config.json`` (the
+    reference's ``_run_config``)."""
+    if not os.path.exists(os.path.join(args.model_dir, "train_config.json")):
+        return config
+    run = run_config(args.model_dir)
+    overrides = {name: getattr(args, name)
+                 for name, default in _MODEL_FLAG_DEFAULTS
+                 if getattr(args, name) != default}
+    if overrides:
+        run = dataclasses.replace(
+            run, model=dataclasses.replace(run.model, **overrides))
+    if args.config:
+        with open(args.config) as f:
+            run = run.with_overrides(json.load(f))
+    return run
+
+
+def cmd_export_ema(args) -> int:
+    """Archive a run: the latest full checkpoint's EMA generator as a
+    compact ``ema.npz`` in the reference's format."""
+    from gansynth_tpu_torch.train.schedule import schedule_from_config
+    from gansynth_tpu_torch.train.state import create_train_state
+    from gansynth_tpu_torch.utils.checkpoint import Checkpointer, save_ema_npz
+
+    config = _restore_config(args, _build_config(args))
+    template = create_train_state(config, device=args.device)
+    ckpt = Checkpointer(os.path.join(args.model_dir, "checkpoints"))
+    state, step = ckpt.restore(template)
+    stage, _ = schedule_from_config(config).stage_and_alpha(max(step - 1, 0))
+    out = args.output or os.path.join(args.model_dir, "ema.npz")
+    dtype = None if args.dtype == "float32" else args.dtype
+    save_ema_npz(out, state.ema, step, stage=stage, dtype=dtype)
+    size = os.path.getsize(out) / 2**20
+    print(f"wrote {out} ({size:.1f} MiB, step {step}, stage {stage})")
+    return 0
+
+
+def cmd_supervise(args) -> int:
+    """``train`` as a child process under a watchdog: restart from the
+    latest checkpoint when its heartbeat stalls or it crashes."""
+    from gansynth_tpu_torch.train.supervisor import (
+        Supervisor,
+        model_dir_from_argv,
+    )
+
+    train_argv = list(args.train_args)
+    if train_argv and train_argv[0] == "--":
+        train_argv = train_argv[1:]
+    sup = Supervisor(
+        train_argv, model_dir_from_argv(train_argv),
+        min_stall_s=args.stall_timeout, stall_factor=args.stall_factor,
+        startup_grace_s=args.startup_grace, max_restarts=args.max_restarts,
+        stop_grace_s=args.stop_grace,
+    )
+    return sup.run()
+
+
+def cmd_stop(args) -> int:
+    """Write the one-shot STOP file the training loop polls; the run
+    checkpoints at its next superstep boundary, consumes the file and
+    exits 0 (under ``supervise``, a zero exit means done)."""
+    stop_path = os.path.join(args.model_dir, "STOP")
+    if not os.path.isdir(args.model_dir):
+        print(f"model dir {args.model_dir} does not exist", flush=True)
+        return 2
+    with open(stop_path, "w") as f:
+        f.write("requested by `gansynth_tpu_torch stop`\n")
+    print(f"stop requested: wrote {stop_path}", flush=True)
+    if not args.wait:
+        return 0
+    deadline = time.time() + args.wait
+    while time.time() < deadline:
+        if not os.path.exists(stop_path):
+            print("stop honored (STOP file consumed by the run)")
+            return 0
+        time.sleep(1.0)
+    print(f"STOP file still present after {args.wait:.0f}s: no live run is "
+          "polling it (already stopped? wrong --model-dir?)")
+    return 1
+
+
+def cmd_fixtures(args) -> int:
+    from gansynth_tpu_torch.data.fixtures import write_synthetic_tfrecords
+
+    print(write_synthetic_tfrecords(args.output,
+                                    num_examples=args.num_examples,
+                                    seed=args.seed))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="gansynth_tpu_torch")
+    parser = argparse.ArgumentParser(
+        prog="gansynth_tpu_torch", description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("train", help="progressive WGAN-GP training")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--data", nargs="*", help="NSynth TFRecord files")
+    p.add_argument("--synthetic", action="store_true",
+                   help="train on generated fixtures (smoke testing)")
+    p.add_argument("--num-steps", type=int, default=None)
+    p.add_argument("--data-parallel", action="store_true",
+                   help="refused: data parallelism is not ported yet")
+    p.add_argument("--multihost", action="store_true",
+                   help="refused: data parallelism is not ported yet")
+    p.add_argument("--sample-every", type=int, default=0,
+                   help="dump EMA-generator audio samples every N steps")
+    p.add_argument("--ingest", default="native", choices=["tf", "native"],
+                   help="TFRecord decode path: the native C++ reader (tf is "
+                   "refused: no TensorFlow)")
+    p.add_argument("--instrument-families", type=int, nargs="+",
+                   default=None, metavar="ID",
+                   help="keep only these NSynth instrument_family ids "
+                   "(0..10)")
+    p.add_argument("--mbstd", default="global",
+                   choices=["global", "per-replica"],
+                   help="minibatch-stddev batch semantics (per-replica is "
+                   "refused: data parallelism is not ported yet)")
+    p.add_argument("--device-cache", action="store_true",
+                   help="hold the whole decoded dataset on the device and "
+                   "gather each step's batch there (stateless, resume-exact "
+                   "data stream)")
+    p.add_argument("--device-cache-layout", default="replicate",
+                   choices=["replicate", "shard"],
+                   help="placement of the --device-cache dataset across "
+                   "devices ('shard' is refused: one device only)")
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_train)
+
     p = sub.add_parser("serve", help="HTTP synthesis server (POST /synthesize)")
     p.add_argument("--model-dir", required=True,
                    help="run directory holding ema.npz and train_config.json")
@@ -75,10 +433,59 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stage", default="auto",
                    help="generator stage; 'auto' takes the stage recorded "
                    "in ema.npz")
-    p.add_argument("--device", default="cuda",
-                   help="torch device (default cuda; 'cpu' to run without "
-                   "a card)")
+    _add_device_flag(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("export-ema",
+                       help="archive the EMA generator as a compact .npz")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--output", default=None,
+                   help="output path (default: <model-dir>/ema.npz)")
+    p.add_argument("--dtype", default="float32",
+                   choices=["float32", "float16"],
+                   help="storage dtype of the parameters (restore casts "
+                   "back to float32)")
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_export_ema)
+
+    p = sub.add_parser(
+        "supervise",
+        help="watchdog-wrapped training: restart from the latest "
+        "checkpoint when the metrics heartbeat stalls or the child crashes")
+    p.add_argument("--stall-timeout", type=float, default=300.0,
+                   help="minimum seconds of heartbeat silence that count "
+                   "as a stall")
+    p.add_argument("--stall-factor", type=float, default=8.0,
+                   help="stall limit = max(stall-timeout, factor x median "
+                   "recent heartbeat interval)")
+    p.add_argument("--startup-grace", type=float, default=1800.0,
+                   help="seconds allowed before the first heartbeat")
+    p.add_argument("--max-restarts", type=int, default=3)
+    p.add_argument("--stop-grace", type=float, default=600.0,
+                   help="on SIGTERM, seconds to wait for the child to "
+                   "checkpoint and exit before killing it")
+    p.add_argument("train_args", nargs=argparse.REMAINDER,
+                   help="arguments forwarded to the train subcommand "
+                   "(must include --model-dir); prefix with --")
+    p.set_defaults(fn=cmd_supervise)
+
+    p = sub.add_parser(
+        "stop",
+        help="gracefully stop a running train/supervise: checkpoint at "
+        "the next superstep boundary, then exit 0 (no restart)")
+    p.add_argument("--model-dir", required=True,
+                   help="the running train's --model-dir")
+    p.add_argument("--wait", type=float, default=0.0, metavar="SECONDS",
+                   help="block until the run consumes the request "
+                   "(0 = return immediately)")
+    p.set_defaults(fn=cmd_stop)
+
+    p = sub.add_parser("fixtures", help="write synthetic NSynth TFRecords")
+    p.add_argument("--output", required=True)
+    p.add_argument("--num-examples", type=int, default=64)
+    p.add_argument("--seed", type=int, default=0)
+    p.set_defaults(fn=cmd_fixtures)
     return parser
 
 

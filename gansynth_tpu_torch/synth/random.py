@@ -19,6 +19,11 @@ The training step's noise follows the reference's key schedule
 state's key, ``split`` it three ways, and draw. ``fold_in``, ``split`` and
 ``uniform`` equal ``jax.random``'s bit for bit.
 
+The cached data stream's batch indices (``train/step.py:
+cached_batch_indices``) come from :func:`permutation` and :func:`randint`,
+which equal ``jax.random``'s bit for bit, so the port reads the
+reference's batches from the same key and step.
+
 Latents are small (256 floats a note), so they are drawn on the host in
 numpy and handed to the device afterwards.
 """
@@ -166,3 +171,33 @@ def seeded_latents(seeds: Sequence[int], latent_dim: int) -> np.ndarray:
     keys = np.array([seed_to_key(s) for s in seeds],
                     np.uint32).reshape(-1, 2)
     return _normal_from_bits(_bits((keys[:, :1], keys[:, 1:]), latent_dim))
+
+
+def permutation(key: Key, n: int) -> np.ndarray:
+    """``jax.random.permutation(key, n)`` (JAX's ``_shuffle``): int32
+    ``[n]``. ``ceil(3 ln n / ln(2^32 - 1))`` rounds (2 for n = 256 or
+    2048, none for n = 1); each round splits the key, draws 32-bit sort
+    keys from the second half and sorts by them, stably, as
+    ``lax.sort_key_val`` does."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(0xFFFFFFFF)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        x = x[np.argsort(random_bits(sub, (n,)), kind="stable")]
+    return x
+
+
+def randint(key: Key, shape: Sequence[int], minval: int,
+            maxval: int) -> np.ndarray:
+    """``jax.random.randint(key, shape, minval, maxval)`` for int32 (JAX's
+    ``_randint``): two 32-bit words per value from ``split(key)``, reduced
+    onto the span with the multiplier ``2^32 mod span``, in wrapping
+    uint32 arithmetic."""
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(1 if maxval <= minval else maxval - minval)
+    multiplier = np.uint32(2 ** 16) % span
+    multiplier = (multiplier * multiplier) % span
+    offset = (higher % span) * multiplier + (lower % span)
+    return (np.int32(minval) + (offset % span).astype(np.int32)).astype(
+        np.int32)

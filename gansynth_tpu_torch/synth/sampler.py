@@ -1,6 +1,7 @@
 """The latent+pitch -> waveform samplers (``gansynth_tpu/synth/sampler.py``).
 
-    z (explicit, or from each note's seed via threefry), pitch one-hot
+    z (explicit, from one key for the batch, or from each note's seed via
+    threefry), pitch one-hot
     -> generator (EMA weights) at ``stage`` -> mel-IF image
     -> [nearest upsample to 128x1024 below the final stage]
     -> image_to_wave (the synthesis kernel on CUDA) -> 64000-sample wave
@@ -17,7 +18,7 @@ import torch
 
 from gansynth_tpu_torch.models.layers import upsample_nearest
 from gansynth_tpu_torch.ops.spectral import image_to_wave
-from gansynth_tpu_torch.synth.random import seeded_latents
+from gansynth_tpu_torch.synth.random import Key, normal, seeded_latents
 from gansynth_tpu_torch.utils.config import Config
 
 
@@ -51,6 +52,27 @@ def make_latent_sampler(config: Config, generator: torch.nn.Module,
         z = torch.as_tensor(z, dtype=torch.float32, device=device)
         labels = torch.as_tensor(labels, dtype=torch.float32, device=device)
         image = generator(z, labels, stage, 1.0)
+        return _full_wave(config, image, stage), image
+
+    return sample
+
+
+def make_sampler(config: Config, generator: torch.nn.Module,
+                 stage: Optional[int] = None):
+    """The keyed sampler: ``sample(key, pitches [B]) -> (wave [B, 64000],
+    image)`` with ``z = jax.random.normal(key, (B, latent_dim))`` drawn by
+    the port's threefry (``gansynth_tpu/synth/sampler.py:_keyed_body``).
+    The training loop's sample dumps call it with ``fold_in(key(seed),
+    step)``."""
+    stage = config.model.num_stages - 1 if stage is None else stage
+    device = _device_of(generator)
+
+    @torch.inference_mode()
+    def sample(key: Key, pitches: Sequence[int]):
+        pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
+        z = torch.from_numpy(
+            normal(key, (pitch.shape[0], config.model.latent_dim))).to(device)
+        image = generator(z, pitch_to_onehot(pitch, config), stage, 1.0)
         return _full_wave(config, image, stage), image
 
     return sample

@@ -15,6 +15,15 @@ the same seed and step give the reference's noise, and a resumed run
 replays it. A caller may still pass any of the three explicitly; the
 parity tests do.
 
+A superstep (:func:`make_superstep`, :func:`make_cached_superstep`) is K
+steps in one call, a Python loop over the step: the reference fuses them
+into one ``lax.scan`` program, the port launches them one after another
+and never waits for the device inside the loop (the metrics stay on the
+device; the caller reads them at its log crossings). The cached form
+gathers each step's batch from a dataset held on the device, at indices
+drawn on the host from the state's key and step
+(:func:`cached_batch_indices`, the reference's stream bit for bit).
+
 ``fused_critic`` ("none", "pair", "all") only schedules the reference's
 critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
 groups), so all three compute the same function. The port runs the three
@@ -23,6 +32,7 @@ passes as separate critic calls under each of them.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -69,16 +79,21 @@ def step_noise(rng: Tuple[int, int], step: int, batch: int,
             "z_g": jrandom.normal(k_zg, (batch, latent_dim))}
 
 
+def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``array`` on ``device``: pinned and asynchronous on a card, so the
+    host does not wait for the stream (a copy from pageable memory
+    synchronises it)."""
+    t = torch.from_numpy(array)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def _to_device(noise: Dict[str, np.ndarray],
                device: torch.device) -> Dict[str, torch.Tensor]:
-    """One host-to-device copy of all of ``noise`` (pinned and
-    asynchronous on a card, so the host does not wait for the stream)."""
-    flat = torch.from_numpy(np.concatenate([v.reshape(-1)
-                                            for v in noise.values()]))
-    if device.type == "cuda":
-        flat = flat.pin_memory().to(device, non_blocking=True)
-    else:
-        flat = flat.to(device)
+    """One host-to-device copy of all of ``noise``."""
+    flat = host_to_device(np.concatenate([v.reshape(-1)
+                                          for v in noise.values()]), device)
     out, at = {}, 0
     for k, v in noise.items():
         out[k] = flat[at:at + v.size].reshape(v.shape)
@@ -185,3 +200,99 @@ def make_train_step(config: Config, stage: int) -> StepFn:
         return state, metrics
 
     return step_fn
+
+
+def _mean_metrics(metrics, alpha) -> Dict[str, torch.Tensor]:
+    """The inner steps' metrics averaged on the device (the reference's
+    ``jnp.mean`` over the scan axis), and the last alpha."""
+    out = {k: torch.stack([m[k] for m in metrics]).mean(0)
+           for k in metrics[0] if k != "alpha"}
+    out["alpha"] = torch.tensor(float(alpha))
+    return out
+
+
+def make_superstep(config: Config, stage: int) -> StepFn:
+    """K steps in one call: ``superstep(state, waves [K, B, T], pitches
+    [K, B], alphas [K]) -> (state, metrics)``, the metrics averaged over
+    the K steps, plus the last alpha. Each step draws its noise from
+    ``(state.rng, state.step)``, so a run chunked into supersteps equals
+    the same steps taken one at a time."""
+    step_fn = make_train_step(config, stage)
+
+    def superstep(state, waves, pitches, alphas):
+        metrics = []
+        for wave, pitch, alpha in zip(waves, pitches, alphas):
+            state, m = step_fn(state, wave, pitch, float(alpha))
+            metrics.append(m)
+        return state, _mean_metrics(metrics, alphas[-1])
+
+    return superstep
+
+
+@functools.lru_cache(maxsize=4)
+def _epoch_permutation(rng: Tuple[int, int], epoch: int,
+                       num_examples: int) -> np.ndarray:
+    """The shuffle law's permutation of epoch ``epoch`` (read-only; a few
+    epochs are kept, so a step does not redraw its 2 x N sort keys)."""
+    key = jrandom.fold_in(jrandom.fold_in(rng, 0x5E0F), epoch)
+    perm = jrandom.permutation(key, num_examples)
+    perm.setflags(write=False)
+    return perm
+
+
+def cached_batch_indices(rng: Tuple[int, int], step: int, batch: int,
+                         num_examples: int,
+                         law: str = "shuffle") -> np.ndarray:
+    """Example indices (int32 ``[batch]``) of the cached stream's batch at
+    global ``step``: a function of ``(rng, step)`` alone, so the stream is
+    stateless and a resumed run reads the batches of an unbroken one.
+
+    ``"shuffle"``: the concatenation of per-epoch permutations of [0, N)
+    (epoch ``e``'s keyed by ``fold_in(fold_in(rng, 0x5E0F), e)``), read at
+    example offset ``step * batch``; a batch across an epoch boundary
+    takes the tail of one permutation and the head of the next (needs
+    ``batch <= N``). ``"replacement"``: uniform draws keyed by
+    ``fold_in(fold_in(rng, step), 0x5A17)``.
+    """
+    if law == "replacement":
+        key = jrandom.fold_in(jrandom.fold_in(rng, step), 0x5A17)
+        return jrandom.randint(key, (batch,), 0, num_examples)
+    pos = step * batch + np.arange(batch)
+    epoch, rank = pos // num_examples, pos % num_examples
+    e0 = step * batch // num_examples
+    return np.where(epoch == e0,
+                    _epoch_permutation(rng, e0, num_examples)[rank],
+                    _epoch_permutation(rng, e0 + 1, num_examples)[rank])
+
+
+def make_cached_superstep(config: Config, stage: int,
+                          num_examples: int) -> StepFn:
+    """K steps over a dataset held on the device: ``superstep(state,
+    all_waves [N, T], all_pitches [N], alphas [K]) -> (state, metrics)``.
+    Each step gathers its batch at :func:`cached_batch_indices` of the
+    state's key and step under ``config.train.cached_stream``, with the
+    stage's batch (``stage_batch_sizes``); only the indices cross to the
+    device."""
+    step_fn = make_train_step(config, stage)
+    batch = config.train.batch_for_stage(stage)
+    law = config.train.cached_stream
+    if law not in ("shuffle", "replacement"):
+        raise ValueError(f"unknown cached_stream {law!r}")
+    if law == "shuffle" and batch > num_examples:
+        raise ValueError(
+            f"cached_stream='shuffle' needs batch ({batch}) <= dataset "
+            f"size ({num_examples}); use 'replacement' or a smaller batch")
+
+    def superstep(state, all_waves, all_pitches, alphas):
+        metrics = []
+        for alpha in alphas:
+            idx = cached_batch_indices(state.rng, state.step, batch,
+                                       num_examples, law)
+            idx = host_to_device(idx.astype(np.int64), all_waves.device)
+            state, m = step_fn(state, all_waves.index_select(0, idx),
+                               all_pitches.index_select(0, idx),
+                               float(alpha))
+            metrics.append(m)
+        return state, _mean_metrics(metrics, alphas[-1])
+
+    return superstep

@@ -2,6 +2,7 @@
 
     python -m gansynth_tpu_torch.utils.profiling --model-dir runs/flagship_r4
     python -m gansynth_tpu_torch.utils.profiling --train
+    python -m gansynth_tpu_torch.utils.profiling --loop
 
 Synthesis: loads the run's EMA generator on the card and, for each batch
 size, times the stages of one seeded synthesis batch with CUDA events (the
@@ -23,6 +24,19 @@ steps with the device time of the step's phases (``spectral_frontend``,
 ``discriminator_update``, ``generator_update``, ``ema_update``), the
 kernels that take the most device time and the idle share. One JSON
 object per run.
+
+``--loop``: the same step (kernels on) taken two ways in one process, in
+turns (single, superstep, superstep, single, ...): one step at a time
+with a synchronize after each (as ``chip_smoke.py``'s phase 8 times it),
+and the training loop's cached superstep of ``unroll`` steps over 256
+fixture notes held on the card (``train/step.py:make_cached_superstep``).
+For each, the CUDA-event ms a step (median, least and most over the
+repeats); for the superstep also the host's time to return from the call
+(what it takes to enqueue the steps, the noise and index draws included)
+and, from a ``torch.profiler`` trace of one superstep, the device's idle
+share and the host's CUDA runtime calls that take the most host time (a
+``cudaStreamSynchronize`` or ``cudaHostAlloc`` there is a step waiting
+for the device). One JSON object.
 """
 
 from __future__ import annotations
@@ -209,6 +223,96 @@ def train_step_profile(model_dir: str, kernels: str, device,
     }
 
 
+def loop_profile(model_dir: str, device, unroll: int = 10,
+                 repeats: int = 4) -> Dict[str, object]:
+    """Single steps against the cached superstep; see ``--loop``."""
+    from gansynth_tpu_torch.cli import run_config
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.schedule import schedule_from_config
+    from gansynth_tpu_torch.train.state import state_from_ema
+    from gansynth_tpu_torch.train.step import (
+        make_cached_superstep,
+        make_train_step,
+    )
+
+    config = run_config(model_dir).released().with_overrides(
+        {"model": {"conv_kernel": "pallas", "dblock_kernel": "pallas"}})
+    state = state_from_ema(config, f"{model_dir}/ema.npz", device)
+    stage, alpha = schedule_from_config(config).stage_and_alpha(state.step)
+    m = config.model
+    batch = config.train.batch_for_stage(stage)
+    waves, pitches = note_batch(256, m.pitch_min, m.pitch_max)
+    all_waves = torch.from_numpy(waves).to(device)
+    all_pitches = torch.from_numpy(pitches).to(device)
+    step_fn = make_train_step(config, stage)
+    superstep = make_cached_superstep(config, stage, 256)
+    alphas = [alpha] * unroll
+
+    def single():
+        step_fn(state, all_waves[:batch], all_pitches[:batch], alpha)
+
+    def fused():
+        superstep(state, all_waves, all_pitches, alphas)
+
+    for _ in range(2):
+        single()
+    fused()
+    torch.cuda.synchronize()
+    singles, fused_ms, enqueue_ms = [], [], []
+    for r in range(repeats):
+        for kind in (("single", "fused") if r % 2 == 0
+                     else ("fused", "single")):
+            if kind == "single":
+                singles += [_event_ms(single, 1) for _ in range(unroll)]
+                continue
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fused()
+            enqueue_ms.append(1e3 * (time.perf_counter() - t0) / unroll)
+            end.record()
+            torch.cuda.synchronize()
+            fused_ms.append(start.elapsed_time(end) / unroll)
+    trace = _trace(fused, 1, 10)
+    runtime = _runtime_calls(fused)
+
+    def spread(xs):
+        return {"median": statistics.median(xs), "min": min(xs),
+                "max": max(xs), "all": xs}
+
+    return {
+        "stage": stage, "alpha": alpha, "batch": batch,
+        "compute_dtype": m.compute_dtype, "unroll": unroll,
+        "repeats": repeats,
+        "single_step_ms": spread(singles),
+        "superstep_ms_per_step": spread(fused_ms),
+        "superstep_host_enqueue_ms_per_step": spread(enqueue_ms),
+        "superstep_idle_share": 1.0 - trace["device_ms_per_call"] / (
+            statistics.median(fused_ms) * unroll),
+        "superstep_device_ms_per_step": trace["device_ms_per_call"] / unroll,
+        "superstep_runtime_calls": runtime,
+    }
+
+
+def _runtime_calls(fn, top: int = 8) -> List[Dict[str, object]]:
+    """The CUDA runtime and driver calls of one call of ``fn`` on the
+    host, by host time: name, calls and ms."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = [{"name": e.key, "calls": e.count,
+              "host_ms": e.self_cpu_time_total / 1e3}
+             for e in prof.key_averages()
+             if e.key.startswith(("cuda", "cu"))
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    return sorted(calls, key=lambda c: -c["host_ms"])[:top]
+
+
 def main(argv=None) -> int:
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
@@ -225,9 +329,17 @@ def main(argv=None) -> int:
                    help="profile one training step, with the kernels, "
                         "with the plain lowerings, and with the plain "
                         "lowerings under cudnn.benchmark")
+    p.add_argument("--loop", action="store_true",
+                   help="single steps against the training loop's cached "
+                        "superstep, in turns")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     set_precision()
+    if args.loop:
+        print(json.dumps({"card": card_info(), "model_dir": args.model_dir,
+                          **loop_profile(args.model_dir, device)}),
+              flush=True)
+        return 0
     if args.train:
         card = card_info()
         for kernels, bench in (("pallas", False), ("xla", False),
