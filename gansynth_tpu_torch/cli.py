@@ -10,14 +10,29 @@ Counterpart of ``gansynth_tpu/cli.py``. Ported subcommands:
                  latest checkpoint when its heartbeat stalls;
 - ``export-ema`` the latest checkpoint's EMA generator as ``ema.npz``;
 - ``fixtures``   synthetic NSynth-schema TFRecords (no TensorFlow);
-- ``serve``      the HTTP synthesis service from a run's ``ema.npz``.
+- ``serve``      the HTTP synthesis service from a restored run;
+- ``generate``   wav files of seeded notes from a restored run;
+- ``interpolate`` a latent morph (and pitch glide) between two notes as
+                 one wav a step and a crossfaded ``morph.wav``;
+- ``evaluate``   pitch-fidelity and distribution metrics of a restored
+                 run, as JSON;
+- ``roundtrip``  wave -> mel-IF image -> wave, with the SNR;
+- ``validate-data`` the readiness gate of TFRecord files (schema,
+                 distributions, decode rate, one superstep, roundtrip).
 
-``train``'s flags and defaults are the reference's, apart from what the
-port refuses with an error (exit 2): ``--ingest tf`` (there is no
-TensorFlow beside the card; the native reader is the default) and
-``--data-parallel``, ``--multihost`` and ``--mbstd per-replica`` (data
-parallelism is ``ROADMAP.md`` queue 1 item 8). Commands that run a model
-take ``--device`` (default ``cuda``; ``cpu`` to run without a card).
+``serve``, ``generate``, ``interpolate`` and ``evaluate`` restore through
+one function, :func:`_restore_sampler`: the newest full checkpoint under
+``checkpoints/`` when there is one, else ``ema.npz``, with the run's
+``train_config.json`` under the model flags and ``--config``.
+
+The flags and defaults are the reference's, apart from what the port
+refuses with an error (exit 2): ``--ingest tf`` / ``--ingest tfdata``
+(there is no TensorFlow beside the card; the native reader is the
+default), ``--data-parallel``, ``--multihost`` and ``--mbstd
+per-replica`` (data parallelism is ``ROADMAP.md`` queue 1 item 8) and
+``interpolate --from-exported`` (export is queue 1 item 6). Commands that
+run a model take ``--device`` (default ``cuda``; ``cpu`` to run without a
+card).
 """
 
 from __future__ import annotations
@@ -35,6 +50,11 @@ import numpy as np
 from gansynth_tpu_torch.utils.config import Config, ModelConfig, TrainConfig
 
 _QUEUE_ITEM_8 = "data parallelism is not ported yet (ROADMAP.md queue 1 item 8)"
+_EXPORT_SLICE = ("export is not ported yet (ROADMAP.md queue 1 item 6: "
+                 "synth/export.py as a torch.export artifact)")
+_NO_TENSORFLOW = ("needs TensorFlow, which the port does not use; the port "
+                  "reads TFRecords with its native reader (--ingest native, "
+                  "the default)")
 
 
 def run_config(model_dir: str) -> Config:
@@ -152,9 +172,7 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
 def _refused(args) -> Optional[str]:
     """Why ``train`` refuses these flags, or None."""
     if args.ingest != "native":
-        return (f"--ingest {args.ingest} needs TensorFlow, which the port "
-                "does not use; the port reads TFRecords with its native "
-                "reader (--ingest native, the default)")
+        return f"--ingest {args.ingest} {_NO_TENSORFLOW}"
     if args.data_parallel:
         return f"--data-parallel: {_QUEUE_ITEM_8}"
     if args.multihost:
@@ -246,28 +264,10 @@ def cmd_train(args) -> int:
 
 def cmd_serve(args) -> int:
     from gansynth_tpu_torch.serve import SynthesisService, serve_forever
-    from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
-    from gansynth_tpu_torch.utils.device import resolve_device, set_precision
 
-    npz = os.path.join(args.model_dir, "ema.npz")
-    if not os.path.exists(npz):
-        print(f"no ema.npz in {args.model_dir}", file=sys.stderr)
-        return 2
-    config = run_config(args.model_dir)
-    device = resolve_device(args.device)
-    set_precision()
-    generator, step, npz_stage = load_ema_generator(npz, config.model, device)
-    if args.stage != "auto":
-        stage = int(args.stage)
-    elif npz_stage is not None:
-        stage = npz_stage
-    else:
-        stage = config.model.num_stages - 1
-    print(f"restored EMA generator from step {step} (sampling at stage "
-          f"{stage}, {config.model.stage_resolution(stage)}) on {device}",
-          flush=True)
+    sampler, step, stage, config = _restore_sampler(args, _build_config(args))
     service = SynthesisService(
-        config, generator, stage=stage, max_batch=args.max_batch,
+        config, sampler.generator, stage=stage, max_batch=args.max_batch,
         max_queue_notes=args.max_queue_notes,
         request_timeout_s=args.request_timeout,
     )
@@ -304,6 +304,256 @@ def _restore_config(args, config: Config) -> Config:
         with open(args.config) as f:
             run = run.with_overrides(json.load(f))
     return run
+
+
+def _restore_sampler(args, config: Config):
+    """Restore a run's EMA generator and the sampler over it:
+    ``(sampler, step, stage, config)`` (the reference's
+    ``_restore_sampler``).
+
+    ``config`` is :func:`_restore_config`'s, which callers use from here
+    on. The weights are the newest full checkpoint's EMA when the run has
+    ``checkpoints/``, else ``ema.npz``'s (an archived run keeps only the
+    export, which may be stored in float16). ``--stage auto`` takes the
+    stage recorded in ``ema.npz`` when the weights came from there, else
+    the schedule's stage at ``step - 1``: a run stopped mid-ladder samples
+    at the stage it trained (below the final stage the image is
+    nearest-upsampled to full size before synthesis); ``--stage N``
+    overrides.
+    """
+    from gansynth_tpu_torch.synth.sampler import Sampler
+    from gansynth_tpu_torch.train.schedule import schedule_from_config
+    from gansynth_tpu_torch.train.state import create_train_state
+    from gansynth_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        load_ema_generator,
+    )
+    from gansynth_tpu_torch.utils.device import resolve_device, set_precision
+
+    config = _restore_config(args, config)
+    device = resolve_device(args.device)
+    set_precision()
+    npz = os.path.join(args.model_dir, "ema.npz")
+    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
+    npz_stage = None
+    if os.path.isdir(ckpt_dir):
+        state, step = Checkpointer(ckpt_dir).restore(
+            create_train_state(config, device=device))
+        generator = state.ema
+        del state
+    elif os.path.exists(npz):
+        generator, step, npz_stage = load_ema_generator(npz, config.model,
+                                                        device)
+    else:
+        raise FileNotFoundError(
+            f"{args.model_dir} has neither checkpoints/ nor ema.npz")
+    if args.stage != "auto":
+        stage = int(args.stage)
+    elif npz_stage is not None:
+        stage = npz_stage
+    else:
+        stage, _ = schedule_from_config(config).stage_and_alpha(
+            max(step - 1, 0))
+    print(f"restored EMA generator from step {step} (sampling at stage "
+          f"{stage}, {config.model.stage_resolution(stage)}) on {device}",
+          flush=True)
+    return Sampler(config, generator, stage=stage), step, stage, config
+
+
+def cmd_generate(args) -> int:
+    from gansynth_tpu_torch.synth.random import seed_to_key, split
+    from gansynth_tpu_torch.utils.audio_io import write_wav
+
+    sampler, _, _, config = _restore_sampler(args, _build_config(args))
+    pitches = [int(p) for p in args.pitches]
+    os.makedirs(args.output_dir, exist_ok=True)
+    key = seed_to_key(args.seed)
+    for i in range(args.num_samples):
+        key, sub = split(key)
+        waves, _ = sampler(sub, pitches)
+        for pitch, wave in zip(pitches, waves.float().cpu().numpy()):
+            out = os.path.join(args.output_dir, f"sample_{i}_pitch{pitch}.wav")
+            write_wav(out, wave, config.audio.sample_rate)
+            print(out)
+    return 0
+
+
+def cmd_interpolate(args) -> int:
+    """A latent morph (and optionally a pitch glide) between two notes,
+    rendered as one batch: a wav per step and a crossfaded ``morph.wav``
+    in ``--output-dir``."""
+    from gansynth_tpu_torch.synth.interpolate import (
+        crossfade_concat,
+        interpolation_labels,
+        interpolation_latents,
+    )
+    from gansynth_tpu_torch.synth.random import normal, seed_to_key
+    from gansynth_tpu_torch.synth.sampler import make_latent_sampler
+    from gansynth_tpu_torch.utils.audio_io import write_wav
+
+    if args.from_exported:
+        print(f"error: --from-exported: {_EXPORT_SLICE}", file=sys.stderr)
+        return 2
+    if not args.model_dir:
+        print("interpolate needs --model-dir", file=sys.stderr)
+        return 2
+    sampler, _, stage, config = _restore_sampler(args, _build_config(args))
+    d = config.model.latent_dim
+    # The endpoints are the serving path's per-note latents of the seeds.
+    za = normal(seed_to_key(args.seed_a), (d,))
+    zb = normal(seed_to_key(args.seed_b), (d,))
+    z = interpolation_latents(za, zb, args.steps, mode=args.mode)
+    pitch_b = args.pitch if args.pitch_b is None else args.pitch_b
+    labels = interpolation_labels(args.pitch, pitch_b, args.steps,
+                                  config.model.pitch_min,
+                                  config.model.num_pitches)
+    waves, _ = make_latent_sampler(config, sampler.generator, stage)(z,
+                                                                     labels)
+    waves = waves.float().cpu().numpy()
+    os.makedirs(args.output_dir, exist_ok=True)
+    for i, t in enumerate(np.linspace(0.0, 1.0, args.steps)):
+        out = os.path.join(args.output_dir, f"interp_{i:02d}_t{t:.2f}.wav")
+        write_wav(out, waves[i], config.audio.sample_rate)
+        print(out)
+    overlap = int(round(args.crossfade_ms / 1000.0
+                        * config.audio.sample_rate))
+    out = os.path.join(args.output_dir, "morph.wav")
+    write_wav(out, crossfade_concat(waves, overlap), config.audio.sample_rate)
+    print(out)
+    return 0
+
+
+def cmd_evaluate(args) -> int:
+    from gansynth_tpu_torch.evaluation import (
+        fixture_reference_fn,
+        render_notes,
+        score_notes,
+        tfrecord_reference_fn,
+    )
+
+    sampler, step, _, config = _restore_sampler(args, _build_config(args))
+    if args.lsd_data:
+        reference_fn = tfrecord_reference_fn(args.lsd_data, config)
+    else:
+        reference_fn = fixture_reference_fn(config.audio.audio_length,
+                                            config.audio.sample_rate)
+    t0 = time.perf_counter()
+    waves, pitches = render_notes(sampler, [int(p) for p in args.pitches],
+                                  args.samples_per_pitch, args.seed)
+    t1 = time.perf_counter()
+    metrics = score_notes(waves, pitches, args.samples_per_pitch,
+                          config.audio.sample_rate, reference_fn,
+                          args.attribution)
+    print(f"evaluate: rendered {len(pitches)} notes in {t1 - t0:.3f} s, "
+          f"scored them in {time.perf_counter() - t1:.3f} s", flush=True)
+    metrics["checkpoint_step"] = step
+    # which references the distribution metrics were taken against
+    metrics["reference_set"] = "tfrecord" if args.lsd_data else "fixture"
+    metrics["reference_files"] = list(args.lsd_data or [])
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(metrics, f, indent=2, sort_keys=True)
+        print(f"wrote {args.output}")
+    summary = _pitch_accuracy_summary(metrics)
+    if summary:
+        print(summary)
+    print(json.dumps(metrics))
+    return 0
+
+
+def _pitch_accuracy_summary(metrics: dict) -> str:
+    """The per-detector accuracies on one line ("either" is the union of
+    two detectors with opposite octave errors, so it is never printed
+    alone); "" when the pitch metrics are absent."""
+    acc = {
+        "hps": metrics.get("pitch_accuracy"),  # harmonic-sum detector
+        "acf": metrics.get("pitch_accuracy_acf"),
+        "either": metrics.get("pitch_accuracy_either"),
+    }
+    if any(v is None for v in acc.values()):
+        return ""
+    line = (
+        f"pitch accuracy: HPS {acc['hps']:.1%} / ACF {acc['acf']:.1%}"
+        f" / either-detector union {acc['either']:.1%}"
+    )
+    cep = metrics.get("pitch_accuracy_cepstrum")
+    cov = metrics.get("pitch_cepstrum_coverage")
+    if cep is not None and cov and cep == cep:  # NaN-safe
+        line += f" / cepstrum {cep:.1%} (on {cov:.0%} of notes)"
+    return line
+
+
+def cmd_roundtrip(args) -> int:
+    import torch
+
+    from gansynth_tpu_torch.data.fixtures import synthesize_note
+    from gansynth_tpu_torch.ops.spectral import image_to_wave, wave_to_image
+    from gansynth_tpu_torch.utils.audio_io import read_wav, write_wav
+    from gansynth_tpu_torch.utils.config import AudioConfig
+    from gansynth_tpu_torch.utils.device import resolve_device, set_precision
+
+    device = resolve_device(args.device)
+    set_precision()
+    audio_cfg = AudioConfig()
+    if args.input:
+        wave, sr = read_wav(args.input)
+        if sr != audio_cfg.sample_rate:
+            print(f"error: expected {audio_cfg.sample_rate} Hz, got {sr}",
+                  file=sys.stderr)
+            return 2
+        n = audio_cfg.audio_length
+        wave = np.pad(wave[:n], (0, max(0, n - wave.size)))
+    else:
+        wave = synthesize_note(args.pitch)
+    with torch.inference_mode():
+        img = wave_to_image(torch.from_numpy(wave[None]).to(device),
+                            audio_cfg)
+        recon = image_to_wave(img, audio_cfg)[0].float().cpu().numpy()
+    err = wave - recon
+    snr = 10 * np.log10(np.sum(wave**2) / max(np.sum(err**2), 1e-30))
+    print(f"mel-IF image: {tuple(img.shape)}; roundtrip SNR: {snr:.2f} dB "
+          f"(mel pseudo-inverse is lossy by design)")
+    if args.output:
+        write_wav(args.output, recon, audio_cfg.sample_rate)
+        print(args.output)
+    return 0
+
+
+def cmd_validate_data(args) -> int:
+    from gansynth_tpu_torch.data.validate import validate_data
+    from gansynth_tpu_torch.utils.device import resolve_device, set_precision
+
+    if args.ingest != "native":
+        print(f"error: --ingest {args.ingest} {_NO_TENSORFLOW}",
+              file=sys.stderr)
+        return 2
+    for f in args.data:
+        if not os.path.exists(f):
+            print(f"error: {f}: no such file", file=sys.stderr)
+            return 2
+    device = None
+    if not args.skip_train_check:
+        device = resolve_device(args.device)
+        set_precision()
+    report = validate_data(
+        args.data, max_examples=args.max_examples,
+        throughput_seconds=args.throughput_seconds,
+        train_stage=args.train_stage,
+        run_train_check=not args.skip_train_check, device=device)
+    if args.output:
+        with open(args.output, "w") as f:
+            json.dump(report, f, indent=2, sort_keys=True)
+    print(json.dumps(report))
+    if not report["ok"]:
+        print("validate-data: FAILED (see schema_problems / decode_ok / "
+              "train_check_ok above)", file=sys.stderr)
+        return 1
+    print(f"validate-data: OK: {report['examples_scanned']} examples "
+          f"scanned, {report['trainable_acoustic_in_range']} trainable "
+          f"after the acoustic+pitch filters, decode "
+          f"{report['decode_examples_per_sec']:.0f} ex/s "
+          f"({report['decode_headroom_vs_chip']:.0f}x one card's demand)")
+    return 0
 
 
 def cmd_export_ema(args) -> int:
@@ -420,9 +670,75 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device_flag(p)
     p.set_defaults(fn=cmd_train)
 
+    _STAGE_HELP = ("generator stage to sample at; 'auto' takes the stage "
+                   "in ema.npz, else the schedule's at the checkpoint step")
+
+    p = sub.add_parser("generate", help="sample .wav files from a checkpoint")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--pitches", nargs="+", default=["60"],
+                   help="MIDI pitches (24..84)")
+    p.add_argument("--num-samples", type=int, default=1)
+    p.add_argument("--stage", default="auto", help=_STAGE_HELP)
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_generate)
+
+    p = sub.add_parser(
+        "interpolate",
+        help="render a latent morph (timbre) / pitch glide between two "
+        "notes as per-step wavs + one crossfaded morph.wav")
+    p.add_argument("--model-dir", default=None, help="run directory")
+    p.add_argument("--from-exported", default=None, metavar="ART.gsx",
+                   help="refused: export is not ported yet")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--pitch", type=int, default=60,
+                   help="MIDI pitch (24..84) of the morph")
+    p.add_argument("--pitch-b", type=int, default=None,
+                   help="glide the conditioning to this pitch (default: "
+                   "fixed --pitch; soft labels in between)")
+    p.add_argument("--seed-a", type=int, default=0,
+                   help="per-note seed of the starting latent")
+    p.add_argument("--seed-b", type=int, default=1,
+                   help="per-note seed of the ending latent")
+    p.add_argument("--steps", type=int, default=9,
+                   help="path length incl. endpoints")
+    p.add_argument("--mode", choices=["slerp", "lerp"], default="slerp",
+                   help="latent path: great circle (keeps shell-typical "
+                   "norms) or straight chord")
+    p.add_argument("--crossfade-ms", type=float, default=250.0,
+                   help="equal-power crossfade between adjacent path notes "
+                   "in morph.wav (0 = plain concatenation)")
+    p.add_argument("--stage", default="auto", help=_STAGE_HELP)
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_interpolate)
+
+    p = sub.add_parser("evaluate",
+                       help="pitch-fidelity metrics from a checkpoint")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--pitches", nargs="+",
+                   default=[str(p) for p in range(24, 85, 12)])
+    p.add_argument("--samples-per-pitch", type=int, default=4)
+    p.add_argument("--lsd-data", nargs="*", default=None,
+                   help="TFRecords of real audio for the distribution "
+                   "metrics' references (default: synthetic fixture notes; "
+                   "the JSON's reference_set says which)")
+    p.add_argument("--attribution", action="store_true",
+                   help="add the per-note failure-attribution report: 95%% "
+                   "CIs, detector-vs-model split, octave direction, "
+                   "per-register and per-pitch tables")
+    p.add_argument("--output", default=None,
+                   help="also write the metrics JSON to this file")
+    p.add_argument("--stage", default="auto", help=_STAGE_HELP)
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_evaluate)
+
     p = sub.add_parser("serve", help="HTTP synthesis server (POST /synthesize)")
     p.add_argument("--model-dir", required=True,
-                   help="run directory holding ema.npz and train_config.json")
+                   help="run directory holding checkpoints/ or ema.npz, "
+                   "and train_config.json")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
     p.add_argument("--max-batch", type=int, default=16)
@@ -430,11 +746,40 @@ def build_parser() -> argparse.ArgumentParser:
                    help="queued notes beyond this get HTTP 429")
     p.add_argument("--request-timeout", type=float, default=30.0,
                    help="seconds before a request fails with HTTP 504")
-    p.add_argument("--stage", default="auto",
-                   help="generator stage; 'auto' takes the stage recorded "
-                   "in ema.npz")
+    p.add_argument("--stage", default="auto", help=_STAGE_HELP)
+    _add_common_train_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_serve)
+
+    p = sub.add_parser("roundtrip", help="wave -> mel-IF -> wave check")
+    p.add_argument("--input", help="16 kHz mono wav (default: synthetic note)")
+    p.add_argument("--pitch", type=int, default=60)
+    p.add_argument("--output", help="write reconstructed wav here")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_roundtrip)
+
+    p = sub.add_parser(
+        "validate-data",
+        help="real-data readiness gate: schema, pitch/family distributions, "
+        "decode throughput against one card's demand, and one training "
+        "superstep + spectral roundtrip on the files")
+    p.add_argument("--data", nargs="+", required=True, metavar="TFRECORD")
+    p.add_argument("--max-examples", type=int, default=2048,
+                   help="examples to scan for schema/distribution checks")
+    p.add_argument("--ingest", default="native",
+                   choices=["tfdata", "native"],
+                   help="decode path: the native reader (tfdata is refused: "
+                   "no TensorFlow)")
+    p.add_argument("--throughput-seconds", type=float, default=3.0,
+                   help="sustained-decode measurement window")
+    p.add_argument("--train-stage", type=int, default=2,
+                   help="ladder stage of the one-superstep check")
+    p.add_argument("--skip-train-check", action="store_true",
+                   help="schema + throughput only (no device work)")
+    p.add_argument("--output", default=None,
+                   help="also write the report JSON to this file")
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_validate_data)
 
     p = sub.add_parser("export-ema",
                        help="archive the EMA generator as a compact .npz")

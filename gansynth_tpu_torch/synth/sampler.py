@@ -7,12 +7,14 @@
     -> image_to_wave (the synthesis kernel on CUDA) -> 64000-sample wave
 
 Each ``make_*`` returns a plain function that runs under
-``torch.inference_mode`` on the generator's device.
+``torch.inference_mode`` on the generator's device. :class:`Sampler` holds
+a restored EMA generator with its config and stage, as the reference's
+does, for ``generate`` and ``evaluate``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -99,3 +101,21 @@ def make_seeded_sampler(config: Config, generator: torch.nn.Module,
         return _full_wave(config, image, stage)
 
     return sample
+
+
+class Sampler:
+    """``sampler(key, pitches) -> (wave [B, 64000], image)`` over
+    :func:`make_sampler`: the restored EMA ``generator`` with its
+    ``config`` and ``stage`` (the final stage when None), as the
+    reference's ``Sampler`` (``gansynth_tpu/synth/sampler.py:191``)."""
+
+    def __init__(self, config: Config, generator: torch.nn.Module,
+                 stage: Optional[int] = None):
+        self.config = config
+        self.generator = generator
+        self.stage = config.model.num_stages - 1 if stage is None else stage
+        self._sample = make_sampler(config, generator, self.stage)
+
+    def __call__(self, key: Key, pitches: Sequence[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self._sample(key, [int(p) for p in pitches])

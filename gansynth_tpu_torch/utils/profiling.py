@@ -3,6 +3,7 @@
     python -m gansynth_tpu_torch.utils.profiling --model-dir runs/flagship_r4
     python -m gansynth_tpu_torch.utils.profiling --train
     python -m gansynth_tpu_torch.utils.profiling --loop
+    python -m gansynth_tpu_torch.utils.profiling --evaluate 8
 
 Synthesis: loads the run's EMA generator on the card and, for each batch
 size, times the stages of one seeded synthesis batch with CUDA events (the
@@ -37,6 +38,16 @@ and, from a ``torch.profiler`` trace of one superstep, the device's idle
 share and the host's CUDA runtime calls that take the most host time (a
 ``cudaStreamSynchronize`` or ``cudaHostAlloc`` there is a step waiting
 for the device). One JSON object.
+
+``--evaluate N``: ``cli evaluate`` on the run at its full width, the 61
+pitches x ``N`` samples (seed 0, attribution, fixture references), in this
+process: the command's wall seconds, its render's and its metrics' wall
+seconds (the command's own line), notes rendered a second, the peak
+device memory, and a ``torch.profiler`` trace of one round of the render
+(61 notes: the device's busy time and idle share). Where
+``tests/data/flagship_eval_ref.json`` holds the JAX package's metrics at
+this ``N`` on the CPU, they and the relative differences ride along. One
+JSON object.
 """
 
 from __future__ import annotations
@@ -313,6 +324,76 @@ def _runtime_calls(fn, top: int = 8) -> List[Dict[str, object]]:
     return sorted(calls, key=lambda c: -c["host_ms"])[:top]
 
 
+EVAL_REF = "tests/data/flagship_eval_ref.json"
+EVAL_COMPARED = ("pitch_accuracy", "pitch_accuracy_acf",
+                 "pitch_accuracy_either", "rms", "log_spectral_distance_60db",
+                 "frechet_mel_60db", "intra_pitch_diversity_60db",
+                 "log_spectral_distance", "frechet_mel")
+
+
+def evaluate_profile(model_dir: str, samples: int) -> Dict[str, object]:
+    """``cli evaluate`` at the run's width with ``samples`` a pitch; see
+    ``--evaluate`` in the module's docstring."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.synth.random import seed_to_key, split
+
+    pitches = list(range(24, 85))
+    out_dir = os.path.join("build", "profile_evaluate")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "eval.json")
+    argv = ["evaluate", "--model-dir", model_dir, "--pitches",
+            *map(str, pitches), "--samples-per-pitch", str(samples),
+            "--seed", "0", "--attribution"]
+    torch.cuda.reset_peak_memory_stats()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([*argv, "--output", out])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise RuntimeError(f"cli evaluate exited {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    m = re.search(r"rendered (\d+) notes in ([0-9.]+) s, scored them in "
+                  r"([0-9.]+) s", buf.getvalue())
+    notes, render_s, score_s = int(m.group(1)), float(m.group(2)), \
+        float(m.group(3))
+    with open(out) as f:
+        metrics = json.load(f)
+
+    args = cli.build_parser().parse_args(argv)
+    with contextlib.redirect_stdout(io.StringIO()):
+        sampler = cli._restore_sampler(args, cli._build_config(args))[0]
+    _, sub = split(seed_to_key(0))
+    sampler(sub, pitches)[0].cpu()
+    trace = _trace(lambda: sampler(sub, pitches)[0].float().cpu(), 1, 8)
+    result = {
+        "samples_per_pitch": samples, "notes": notes,
+        "command_wall_s": wall, "render_s": render_s,
+        "metrics_s": score_s, "notes_per_s_render": notes / render_s,
+        "render_share_of_command": render_s / wall,
+        "peak_mem_gib": peak, "render_round_trace": trace,
+        "metrics": {k: metrics[k] for k in EVAL_COMPARED},
+    }
+    if os.path.exists(EVAL_REF):
+        with open(EVAL_REF) as f:
+            ref = json.load(f)
+        name = {ref["settings"]["samples_per_pitch"]: "metrics",
+                ref["settings"]["samples_per_pitch_n8"]: "metrics_n8"}.get(
+                    samples)
+        if name:
+            want = {k: ref[name][k] for k in EVAL_COMPARED}
+            result["reference_cpu"] = want
+            result["relative_diff"] = {
+                k: abs(metrics[k] - v) / abs(v) if v else abs(metrics[k])
+                for k, v in want.items()}
+    return result
+
+
 def main(argv=None) -> int:
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
@@ -332,9 +413,16 @@ def main(argv=None) -> int:
     p.add_argument("--loop", action="store_true",
                    help="single steps against the training loop's cached "
                         "superstep, in turns")
+    p.add_argument("--evaluate", type=int, default=None, metavar="N",
+                   help="time cli evaluate at N samples a pitch")
     args = p.parse_args(argv)
     device = resolve_device("cuda")
     set_precision()
+    if args.evaluate:
+        print(json.dumps({"card": card_info(), "model_dir": args.model_dir,
+                          **evaluate_profile(args.model_dir, args.evaluate)}),
+              flush=True)
+        return 0
     if args.loop:
         print(json.dumps({"card": card_info(), "model_dir": args.model_dir,
                           **loop_profile(args.model_dir, device)}),

@@ -55,7 +55,7 @@ def _wave_bar(want, got):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch", [1, 3, 4, 16])
+@pytest.mark.parametrize("batch", [1, 3, 4, 8, 9, 16, 61])
 def test_synthesis_kernel_matches_plain(cuda_device, batch):
     x = _image(batch, cuda_device, batch)
     before = K.synthesis_spectrum.launches
