@@ -79,8 +79,22 @@ raises, so the exit code is non-zero):
     the reference's) and ``validate-data`` on fixture TFRecords the port
     writes (``ok``, the superstep and the decode rate against one card's
     demand). One ``{"offline_cli": ...}`` line;
-12. one JSON line with every kernel's launches on its path (and on the
-    training loop's and the offline CLI's), error, times (K2 at every
+12. the portable serving artifact, under ``build/smoke_export/``: ``cli
+    export-model --with-latent --check`` on the flagship (the check's
+    relative L2 within its bf16 bound, 0.15; the file's MiB, seeded alone
+    and with the latent program); the artifact loaded on the card with
+    K1's count set to 0 just before, behind the HTTP server answering
+    ``SERVE_REQUESTS`` (each reply within that bound of the in-process
+    sampler's; the warm latency at rungs 1/4/16 beside an in-process
+    service's; the same batches through the seeded program, the latent
+    program fed the host's latents and the in-process sampler,
+    ``EXPORT_TURNS`` calls in turns, their host-clock latency and their
+    waves' gap); ``interpolate --from-exported`` (9 steps); the same
+    artifact loaded on the CPU rendering one note within that bound of the
+    card's; and a ``conv_kernel="pallas"`` export whose batch of 4 launches
+    K2 and holds to the in-process sampler. One ``{"export": ...}`` line;
+13. one JSON line with every kernel's launches on its path (and on the
+    training loop's, the offline CLI's and the exported sampler's), error, times (K2 at every
     shape; the library call also under ``cudnn.benchmark``; the fraction
     of the bound reached) and its registers, spills and shared memory
     from ``ptxas``; the total seconds; and the result line.
@@ -95,6 +109,7 @@ import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import threading
@@ -1214,19 +1229,21 @@ def bf16_vs_reference(device, config):
     return out
 
 
-def serve_requests(config, generator, stage):
-    """The main path: service + HTTP server, 4 concurrent requests."""
-    from gansynth_tpu_torch.serve import SynthesisService, make_server
+SERVE_REQUESTS = [[36], [48, 60], [72], [84, 60, 36]]   # request i: seed i
 
-    service = SynthesisService(config, generator, stage=stage,
-                               max_batch=MAX_BATCH,
-                               request_timeout_s=120.0)
+
+def serve_requests(service):
+    """The main path: ``service`` behind the HTTP server, the 4 concurrent
+    requests of ``SERVE_REQUESTS``; returns the ``/healthz`` body and the
+    WAV bodies. Closes the service."""
+    from gansynth_tpu_torch.serve import make_server
+
     server = make_server(service, "127.0.0.1", 0)
     thread = threading.Thread(target=server.serve_forever, daemon=True,
                               name="http")
     thread.start()
     url = "http://%s:%d" % server.server_address
-    requests = [[36], [48, 60], [72], [84, 60, 36]]
+    requests = SERVE_REQUESTS
     replies = [None] * len(requests)
     errors = []
     barrier = threading.Barrier(len(requests))
@@ -1276,7 +1293,197 @@ def serve_requests(config, generator, stage):
              if t is not threading.main_thread() and not t.daemon]
     if thread.is_alive() or service._batcher.is_alive() or alive:
         raise AssertionError(f"threads still running: {alive}")
-    return health
+    return health, [body for _, _, body in replies]
+
+
+EXPORT_DIR = os.path.join(ROOT, "build", "smoke_export")
+EXPORT_RUNGS = ("1", "4", "16")
+EXPORT_NOTE = (5, 60)    # (seed, pitch) of the note rendered on both devices
+EXPORT_TURNS = 12        # in-turns calls a rung of each of the three paths
+
+
+def _pcm(wav: bytes):
+    import numpy as np
+
+    return np.frombuffer(wav[44:], dtype="<i2").astype(np.float64)
+
+
+def _rel(want, got) -> float:
+    import numpy as np
+
+    return float(np.linalg.norm(want - got) / (np.linalg.norm(want) + 1e-30))
+
+
+def export_phase(card, config):
+    """Phase 12, the portable serving artifact on the flagship: ``cli
+    export-model --with-latent --check``; the artifact loaded on the card
+    behind the HTTP server beside the in-process service (K1 counted from
+    the load to the last reply); ``interpolate --from-exported``; the same
+    artifact on the CPU; a ``conv_kernel="pallas"`` export with K2 counted.
+    Writes only under ``build/smoke_export/``."""
+    import contextlib
+    import dataclasses
+    import io
+    import re
+
+    import torch
+
+    from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.serve import SynthesisService
+    from gansynth_tpu_torch.synth.export import (
+        load_sampler_artifact,
+        save_sampler_artifact,
+    )
+    from gansynth_tpu_torch.synth.random import seeded_latents
+    from gansynth_tpu_torch.synth.sampler import (
+        make_seeded_sampler,
+        pitch_to_onehot,
+    )
+    from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
+
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.makedirs(EXPORT_DIR)
+    art = os.path.join(EXPORT_DIR, "sampler.gsx")
+    out = {"card": card}
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["export-model", "--model-dir", FLAGSHIP, "--output",
+                       art, "--with-latent", "--check"])
+    out["export_model_seconds"] = time.perf_counter() - t
+    printed = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"export-model exited {rc}:\n{printed[-3000:]}")
+    out["save_seconds"] = float(re.search(r"\) in ([0-9.]+) s",
+                                          printed).group(1))
+    out["check_rel_l2"] = float(re.search(
+        r"in-process sampler: ([0-9.e+-]+) \(bound", printed).group(1))
+    # export-model --check's bound for the flagship's type
+    out["check_bound"] = 0.15 if config.model.compute_dtype == "bfloat16" \
+        else 1e-3
+    with open(art, "rb") as f:
+        f.seek(8)
+        hlen = int.from_bytes(f.read(4), "big")
+        meta = json.loads(f.read(hlen))
+    seeded = 12 + hlen + meta["programs"][0]["bytes"]
+    out["mib"] = {"seeded": seeded / 2 ** 20,
+                  "seeded_latent": os.path.getsize(art) / 2 ** 20}
+
+    generator, _, stage = load_ema_generator(
+        os.path.join(FLAGSHIP, "ema.npz"), config.model, "cuda")
+    sample = make_seeded_sampler(config, generator, stage)
+    in_process = SynthesisService(config, generator, stage=stage,
+                                  max_batch=MAX_BATCH)
+    in_process.close()
+
+    synthesis_spectrum.launches = 0
+    t = time.perf_counter()
+    loaded = load_sampler_artifact(art, "cuda")
+    out["load_seconds"] = time.perf_counter() - t
+    service = SynthesisService(loaded.config(), None, exported=loaded,
+                               max_batch=MAX_BATCH, request_timeout_s=120.0)
+    health, replies = serve_requests(service)
+    out["launches"] = synthesis_spectrum.launches
+    if out["launches"] == 0:
+        raise AssertionError("the exported sampler never launched K1")
+    if not health["exported_artifact"]:
+        raise AssertionError(f"healthz: {health}")
+    out["warm_latency_s"] = {
+        r: {"exported": health["warm_latency_s"][r],
+            "in_process": in_process.warm_latency_s[int(r)]}
+        for r in EXPORT_RUNGS}
+    out["device_batches"] = health["device_batches"]
+    served = []
+    for i, (pitches, wav) in enumerate(zip(SERVE_REQUESTS, replies)):
+        seeds = [(i * 1000003 + j) & 0x7FFFFFFF for j in range(len(pitches))]
+        want = service.wav_bytes(sample(seeds, pitches).cpu().numpy())
+        served.append(_rel(_pcm(want), _pcm(wav)))
+    out["served_rel_l2"] = served
+    if not max(served) <= out["check_bound"]:
+        raise AssertionError(f"served waves vs the in-process sampler: "
+                             f"{served} (bound {out['check_bound']})")
+
+    # The same batches through the artifact's seeded program, its latent
+    # program fed the host's latents (what the in-graph draw costs), and
+    # the in-process sampler, in turns: host-clock latency to the fetched
+    # wave, and the waves' gap.
+    def latent_program(seeds, pitches):
+        labels = pitch_to_onehot(torch.tensor(pitches), config).numpy()
+        return loaded.latent(
+            seeded_latents(seeds, config.model.latent_dim), labels)
+
+    contenders = [("exported", loaded), ("latent_program", latent_program),
+                  ("in_process", sample)]
+    latency, same = {}, {}
+    for r in EXPORT_RUNGS:
+        seeds = list(range(int(r)))
+        pitches = [24 + 7 * i % 61 for i in seeds]
+        ms = {name: [] for name, _ in contenders}
+        for turn in range(EXPORT_TURNS):
+            k = turn % len(contenders)
+            for name, fn in contenders[k:] + contenders[:k]:
+                t = time.perf_counter()
+                fn(seeds, pitches).cpu()
+                ms[name].append((time.perf_counter() - t) * 1e3)
+        latency[r] = {k: {"median": statistics.median(v), "min": min(v),
+                          "max": max(v)} for k, v in ms.items()}
+        want = sample(seeds, pitches).cpu().numpy()
+        same[r] = {name: _rel(want, fn(seeds, pitches).cpu().numpy())
+                   for name, fn in contenders[:2]}
+    out["latency_ms_in_turns"] = latency
+    out["same_batch_rel_l2"] = same
+
+    interp = os.path.join(EXPORT_DIR, "interpolate")
+    synthesis_spectrum.launches = 0
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["interpolate", "--from-exported", art, "--output-dir",
+                       interp, "--pitch", "60", "--pitch-b", "67",
+                       "--steps", "9"])
+    if rc != 0 or len(os.listdir(interp)) != 10:
+        raise AssertionError(f"interpolate --from-exported: rc {rc}")
+    out["interpolate_launches"] = synthesis_spectrum.launches
+
+    seed, pitch = EXPORT_NOTE
+    card_wave = loaded([seed], [pitch]).cpu().numpy()
+    t = time.perf_counter()
+    on_cpu = load_sampler_artifact(art, "cpu")
+    cpu_wave = on_cpu([seed], [pitch]).numpy()
+    out["cpu_seconds"] = time.perf_counter() - t
+    out["cpu_vs_card_rel_l2"] = _rel(card_wave, cpu_wave)
+    if not out["cpu_vs_card_rel_l2"] <= out["check_bound"]:
+        raise AssertionError(f"the artifact on the CPU vs the card: "
+                             f"{out['cpu_vs_card_rel_l2']}")
+    del on_cpu, loaded, service
+
+    pallas = dataclasses.replace(config, model=dataclasses.replace(
+        config.model, conv_kernel="pallas"))
+    gen_k2, step, _ = load_ema_generator(
+        os.path.join(FLAGSHIP, "ema.npz"), pallas.model, "cuda")
+    art_k2 = os.path.join(EXPORT_DIR, "pallas.gsx")
+    t = time.perf_counter()
+    save_sampler_artifact(art_k2, pallas, gen_k2, step, stage=stage)
+    out["pallas_save_seconds"] = time.perf_counter() - t
+    loaded = load_sampler_artifact(art_k2, "cuda")
+    seeds, pitches = [0, 1, 2, 3], [36, 48, 60, 72]
+    synthesis_spectrum.launches = 0
+    conv3x3_same.launches.update(forward=0, input_grad=0)
+    got = loaded(seeds, pitches).cpu().numpy()
+    torch.cuda.synchronize()
+    out["pallas_launches"] = {"synthesis_spectrum": synthesis_spectrum.launches,
+                              "conv3x3": conv3x3_same.launches["forward"]}
+    want = make_seeded_sampler(pallas, gen_k2, stage)(
+        seeds, pitches).cpu().numpy()
+    out["pallas_rel_l2"] = _rel(want, got)
+    if not (out["pallas_launches"]["conv3x3"] > 0
+            and out["pallas_launches"]["synthesis_spectrum"] == 1
+            and out["pallas_rel_l2"] <= out["check_bound"]):
+        raise AssertionError(f"conv_kernel=pallas export: {out}")
+    print(json.dumps({"export": out}), flush=True)
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -1293,6 +1500,7 @@ def main() -> int:
         _device_taps,
         synthesis_spectrum,
     )
+    from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
     from gansynth_tpu_torch.utils.device import (
         card_info,
@@ -1383,7 +1591,9 @@ def main() -> int:
 
     t = time.perf_counter()
     synthesis_spectrum.launches = 0
-    health = serve_requests(config, generator, stage)
+    health, _ = serve_requests(SynthesisService(
+        config, generator, stage=stage, max_batch=MAX_BATCH,
+        request_timeout_s=120.0))
     launches = synthesis_spectrum.launches
     if launches == 0:
         raise AssertionError("the main path never launched K1")
@@ -1438,6 +1648,33 @@ def main() -> int:
           f"{offline['launches_total']['synthesis_spectrum']}; peak "
           f"{offline['peak_mem_gib']:.2f} GiB ({card})")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    exp = export_phase(card, config)
+    phase("export", t, f"export-model --with-latent --check "
+          f"{exp['export_model_seconds']:.2f}s (save {exp['save_seconds']:.2f}s)"
+          f", {exp['mib']['seeded']:.1f} MiB seeded, "
+          f"{exp['mib']['seeded_latent']:.1f} MiB with latent; check rel L2 "
+          f"{exp['check_rel_l2']:.3g} (bound {exp['check_bound']}); load "
+          f"{exp['load_seconds']:.2f}s; warm latency s exported/in-process "
+          + ", ".join(f"B={r} {v['exported']}/{v['in_process']}"
+                      for r, v in exp["warm_latency_s"].items())
+          + "; in turns, median ms exported/latent program/in-process "
+          + ", ".join(
+              f"B={r} {v['exported']['median']:.2f}/"
+              f"{v['latent_program']['median']:.2f}/"
+              f"{v['in_process']['median']:.2f}"
+              for r, v in exp["latency_ms_in_turns"].items())
+          + "; same batch rel L2 " + str(max(
+              g for v in exp["same_batch_rel_l2"].values()
+              for g in v.values()))
+          + f"; served vs in-process worst {max(exp['served_rel_l2']):.3g}; "
+          f"K1 launches {exp['launches']} (interpolate "
+          f"{exp['interpolate_launches']}); CPU vs card "
+          f"{exp['cpu_vs_card_rel_l2']:.3g} ({exp['cpu_seconds']:.1f}s); "
+          f"pallas export K2 launches {exp['pallas_launches']['conv3x3']}, "
+          f"rel {exp['pallas_rel_l2']:.3g} ({card})")
+
     conv_launches = (train["launches"]["conv3x3_forward"]
                      + train["launches"]["conv3x3_input_grad"])
     loop_launches = loop["launches"]
@@ -1449,6 +1686,7 @@ def main() -> int:
         "launches": launches,
         "loop_launches": loop_launches["synthesis_spectrum"],
         "offline_launches": offline["launches_total"]["synthesis_spectrum"],
+        "export_launches": exp["launches"],
         "max_abs_err": k1["max_abs_err"],
         **{k: k1[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
                               "bound_ms", "bound_by", "fraction_of_bound",
@@ -1476,6 +1714,7 @@ def main() -> int:
                            **{k: row[k] for k in TIMES}}
                           for row in k2["sample_shapes"]],
         "offline_launches": offline["launches_total"]["conv3x3"],
+        "export_launches": exp["pallas_launches"]["conv3x3"],
         "measured_only": k2["measured_only"],
         "resources": resources["conv3x3"],
     }, {

@@ -13,15 +13,18 @@ its module names so each counterpart is easy to find:
                 with plain ``nvcc`` and bound with ``ctypes``, each beside
                 its plain PyTorch version.
 - ``models``  — the progressive pitch-conditioned generator and critic.
-- ``synth``   — threefry (latents, permutations, randint) and the keyed,
-                seeded and latent samplers.
+- ``synth``   — threefry (latents, permutations, randint), the keyed,
+                seeded and latent samplers, and the portable serving
+                artifact (``torch.export``).
 - ``train``   — the WGAN-GP step and superstep, the schedule, the loop
                 and the supervisor.
 - ``data``    — synthetic notes, the TFRecord fixture writer and the
                 native TFRecord reader (no TensorFlow).
 - ``serve``   — the coalescing HTTP synthesis service.
 - ``cli``     — ``train``, ``stop``, ``supervise``, ``export-ema``,
-                ``fixtures`` and ``serve``.
+                ``export-model``, ``fixtures``, ``serve``, ``generate``,
+                ``interpolate``, ``evaluate``, ``roundtrip`` and
+                ``validate-data``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Nothing is imported eagerly here: importing the package starts no build,

@@ -9,30 +9,37 @@ Counterpart of ``gansynth_tpu/cli.py``. Ported subcommands:
 - ``supervise``  ``train`` under a watchdog that restarts it from the
                  latest checkpoint when its heartbeat stalls;
 - ``export-ema`` the latest checkpoint's EMA generator as ``ema.npz``;
+- ``export-model`` the portable serving artifact (``synth/export.py``): the
+                 EMA generator and the whole seeded synthesis in one
+                 ``torch.export`` file, with K1 kept in the program;
 - ``fixtures``   synthetic NSynth-schema TFRecords (no TensorFlow);
-- ``serve``      the HTTP synthesis service from a restored run;
+- ``serve``      the HTTP synthesis service from a restored run, or from
+                 an exported artifact (``--from-exported``);
 - ``generate``   wav files of seeded notes from a restored run;
 - ``interpolate`` a latent morph (and pitch glide) between two notes as
-                 one wav a step and a crossfaded ``morph.wav``;
+                 one wav a step and a crossfaded ``morph.wav``, from a
+                 restored run or an artifact with its latent program;
 - ``evaluate``   pitch-fidelity and distribution metrics of a restored
                  run, as JSON;
 - ``roundtrip``  wave -> mel-IF image -> wave, with the SNR;
 - ``validate-data`` the readiness gate of TFRecord files (schema,
                  distributions, decode rate, one superstep, roundtrip).
 
-``serve``, ``generate``, ``interpolate`` and ``evaluate`` restore through
-one function, :func:`_restore_sampler`: the newest full checkpoint under
-``checkpoints/`` when there is one, else ``ema.npz``, with the run's
-``train_config.json`` under the model flags and ``--config``.
+``serve``, ``generate``, ``interpolate``, ``evaluate`` and
+``export-model`` restore through one function, :func:`_restore_sampler`:
+the newest full checkpoint under ``checkpoints/`` when there is one, else
+``ema.npz``, with the run's ``train_config.json`` under the model flags and
+``--config``. ``serve --from-exported`` and ``interpolate
+--from-exported`` take a ``.gsx`` artifact instead, whose header carries
+the config.
 
 The flags and defaults are the reference's, apart from what the port
 refuses with an error (exit 2): ``--ingest tf`` / ``--ingest tfdata``
 (there is no TensorFlow beside the card; the native reader is the
 default), ``--data-parallel``, ``--multihost`` and ``--mbstd
-per-replica`` (data parallelism is ``ROADMAP.md`` queue 1 item 8) and
-``interpolate --from-exported`` (export is queue 1 item 6). Commands that
-run a model take ``--device`` (default ``cuda``; ``cpu`` to run without a
-card).
+per-replica`` (data parallelism is not ported), and ``export-model
+--platforms`` other than ``cpu`` and ``cuda``. Commands that run a model
+take ``--device`` (default ``cuda``; ``cpu`` to run without a card).
 """
 
 from __future__ import annotations
@@ -49,9 +56,7 @@ import numpy as np
 
 from gansynth_tpu_torch.utils.config import Config, ModelConfig, TrainConfig
 
-_QUEUE_ITEM_8 = "data parallelism is not ported yet (ROADMAP.md queue 1 item 8)"
-_EXPORT_SLICE = ("export is not ported yet (ROADMAP.md queue 1 item 6: "
-                 "synth/export.py as a torch.export artifact)")
+_DATA_PARALLEL = "data parallelism is not ported yet (ROADMAP.md queue 1 item 4)"
 _NO_TENSORFLOW = ("needs TensorFlow, which the port does not use; the port "
                   "reads TFRecords with its native reader (--ingest native, "
                   "the default)")
@@ -174,14 +179,14 @@ def _refused(args) -> Optional[str]:
     if args.ingest != "native":
         return f"--ingest {args.ingest} {_NO_TENSORFLOW}"
     if args.data_parallel:
-        return f"--data-parallel: {_QUEUE_ITEM_8}"
+        return f"--data-parallel: {_DATA_PARALLEL}"
     if args.multihost:
-        return f"--multihost: {_QUEUE_ITEM_8}"
+        return f"--multihost: {_DATA_PARALLEL}"
     if args.mbstd != "global":
-        return f"--mbstd {args.mbstd}: {_QUEUE_ITEM_8}"
+        return f"--mbstd {args.mbstd}: {_DATA_PARALLEL}"
     if args.device_cache_layout != "replicate":
         return f"--device-cache-layout {args.device_cache_layout}: " \
-            f"{_QUEUE_ITEM_8}"
+            f"{_DATA_PARALLEL}"
     return None
 
 
@@ -265,6 +270,32 @@ def cmd_train(args) -> int:
 def cmd_serve(args) -> int:
     from gansynth_tpu_torch.serve import SynthesisService, serve_forever
 
+    if args.from_exported:
+        # The artifact's header carries the config: no run directory,
+        # checkpoint or model flags.
+        from gansynth_tpu_torch.synth.export import load_sampler_artifact
+        from gansynth_tpu_torch.utils.device import set_precision
+
+        set_precision()
+        try:
+            loaded = load_sampler_artifact(args.from_exported, args.device)
+            service = SynthesisService(
+                loaded.config(), None, exported=loaded,
+                max_batch=args.max_batch,
+                max_queue_notes=args.max_queue_notes,
+                request_timeout_s=args.request_timeout,
+            )
+        except (OSError, ValueError) as e:
+            print(f"cannot serve {args.from_exported}: {e}", file=sys.stderr)
+            return 2
+        print(f"artifact from step {loaded.step} (stage {loaded.stage}) on "
+              f"{loaded.device}; warmup done", flush=True)
+        serve_forever(service, args.host, args.port)
+        return 0
+    if not args.model_dir:
+        print("serve needs --model-dir (or --from-exported ART.gsx)",
+              file=sys.stderr)
+        return 2
     sampler, step, stage, config = _restore_sampler(args, _build_config(args))
     service = SynthesisService(
         config, sampler.generator, stage=stage, max_batch=args.max_batch,
@@ -392,12 +423,31 @@ def cmd_interpolate(args) -> int:
     from gansynth_tpu_torch.utils.audio_io import write_wav
 
     if args.from_exported:
-        print(f"error: --from-exported: {_EXPORT_SLICE}", file=sys.stderr)
+        # Needs the latent program (export-model --with-latent); the
+        # config rides in the header.
+        from gansynth_tpu_torch.synth.export import load_sampler_artifact
+
+        try:
+            loaded = load_sampler_artifact(args.from_exported, args.device)
+        except (OSError, ValueError) as e:
+            print(f"cannot interpolate from {args.from_exported}: {e}",
+                  file=sys.stderr)
+            return 2
+        if not loaded.has_latent:
+            print(f"{args.from_exported} ships only the seeded serving "
+                  "program; re-export with `export-model --with-latent` to "
+                  "interpolate from an artifact", file=sys.stderr)
+            return 2
+        config, render = loaded.config(), loaded.latent
+    elif args.model_dir:
+        sampler, _, stage, config = _restore_sampler(args,
+                                                     _build_config(args))
+        latent = make_latent_sampler(config, sampler.generator, stage)
+        render = lambda z, labels: latent(z, labels)[0]  # noqa: E731
+    else:
+        print("interpolate needs --model-dir (or --from-exported ART.gsx)",
+              file=sys.stderr)
         return 2
-    if not args.model_dir:
-        print("interpolate needs --model-dir", file=sys.stderr)
-        return 2
-    sampler, _, stage, config = _restore_sampler(args, _build_config(args))
     d = config.model.latent_dim
     # The endpoints are the serving path's per-note latents of the seeds.
     za = normal(seed_to_key(args.seed_a), (d,))
@@ -407,9 +457,7 @@ def cmd_interpolate(args) -> int:
     labels = interpolation_labels(args.pitch, pitch_b, args.steps,
                                   config.model.pitch_min,
                                   config.model.num_pitches)
-    waves, _ = make_latent_sampler(config, sampler.generator, stage)(z,
-                                                                     labels)
-    waves = waves.float().cpu().numpy()
+    waves = render(z, labels).float().cpu().numpy()
     os.makedirs(args.output_dir, exist_ok=True)
     for i, t in enumerate(np.linspace(0.0, 1.0, args.steps)):
         out = os.path.join(args.output_dir, f"interp_{i:02d}_t{t:.2f}.wav")
@@ -576,6 +624,62 @@ def cmd_export_ema(args) -> int:
     return 0
 
 
+def cmd_export_model(args) -> int:
+    """The portable serving artifact (``synth/export.py``): the restored
+    EMA generator and the whole seeded synthesis in one ``.gsx`` file;
+    ``--check`` reloads it and holds its waves to the in-process
+    sampler's."""
+    from gansynth_tpu_torch.synth.export import (
+        PLATFORMS,
+        load_sampler_artifact,
+        save_sampler_artifact,
+    )
+    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+
+    platforms = [p.strip().lower() for p in args.platforms.split(",")
+                 if p.strip()]
+    if not platforms or set(platforms) - set(PLATFORMS):
+        print(f"error: --platforms {args.platforms!r}: the port's artifact "
+              f"runs on {','.join(PLATFORMS)} only", file=sys.stderr)
+        return 2
+    sampler, step, stage, config = _restore_sampler(args, _build_config(args))
+    out = args.output or os.path.join(args.model_dir, "sampler.gsx")
+    t0 = time.perf_counter()
+    save_sampler_artifact(out, config, sampler.generator, step, stage=stage,
+                          platforms=platforms, batch=args.batch,
+                          with_latent=args.with_latent)
+    seconds = time.perf_counter() - t0
+    size = os.path.getsize(out) / 2**20
+    batch = "symbolic" if args.batch is None else str(args.batch)
+    progs = "seeded+latent" if args.with_latent else "seeded"
+    print(f"wrote {out} ({size:.1f} MiB, step {step}, stage {stage}, "
+          f"platforms {','.join(platforms)}, batch {batch}, programs "
+          f"{progs}) in {seconds:.2f} s", flush=True)
+    if not args.check:
+        return 0
+    device = next(sampler.generator.parameters()).device
+    loaded = load_sampler_artifact(out, device)
+    n = args.batch or 4
+    seeds = list(range(n))
+    pitch = np.linspace(config.model.pitch_min, config.model.pitch_max,
+                        n).astype(np.int32).tolist()
+    direct = make_seeded_sampler(config, sampler.generator, stage)(
+        seeds, pitch).float().cpu().numpy()
+    got = loaded(seeds, pitch).float().cpu().numpy()
+    rel = float(np.linalg.norm(direct - got)
+                / (np.linalg.norm(direct) + 1e-30))
+    # The reference's bounds (its export is another XLA specialization);
+    # the port's program runs the same modules, so it sits far below them.
+    bound = 0.15 if config.model.compute_dtype == "bfloat16" else 1e-3
+    print(f"round-trip relative L2 err vs in-process sampler: {rel:.3g} "
+          f"(bound {bound:g} for {config.model.compute_dtype})", flush=True)
+    if rel > bound:
+        print("ERROR: the artifact diverges from the in-process sampler",
+              file=sys.stderr)
+        return 1
+    return 0
+
+
 def cmd_supervise(args) -> int:
     """``train`` as a child process under a watchdog: restart from the
     latest checkpoint when its heartbeat stalls or it crashes."""
@@ -690,7 +794,8 @@ def build_parser() -> argparse.ArgumentParser:
         "notes as per-step wavs + one crossfaded morph.wav")
     p.add_argument("--model-dir", default=None, help="run directory")
     p.add_argument("--from-exported", default=None, metavar="ART.gsx",
-                   help="refused: export is not ported yet")
+                   help="render from an artifact's latent program "
+                   "(export-model --with-latent) instead of a run")
     p.add_argument("--output-dir", required=True)
     p.add_argument("--pitch", type=int, default=60,
                    help="MIDI pitch (24..84) of the morph")
@@ -736,9 +841,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_evaluate)
 
     p = sub.add_parser("serve", help="HTTP synthesis server (POST /synthesize)")
-    p.add_argument("--model-dir", required=True,
+    p.add_argument("--model-dir", default=None,
                    help="run directory holding checkpoints/ or ema.npz, "
-                   "and train_config.json")
+                   "and train_config.json (not needed with --from-exported)")
+    p.add_argument("--from-exported", default=None, metavar="ART.gsx",
+                   help="serve an export-model artifact (symbolic batch) "
+                   "instead of a run: no checkpoint, no model flags")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
     p.add_argument("--max-batch", type=int, default=16)
@@ -793,6 +901,31 @@ def build_parser() -> argparse.ArgumentParser:
     _add_common_train_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_export_ema)
+
+    p = sub.add_parser(
+        "export-model",
+        help="portable serving artifact: the EMA generator and the whole "
+        "seeded synthesis as one torch.export file (.gsx)")
+    p.add_argument("--model-dir", required=True)
+    p.add_argument("--output", default=None,
+                   help="output path (default: <model-dir>/sampler.gsx)")
+    p.add_argument("--platforms", default="cpu,cuda",
+                   help="comma-separated devices the artifact may be loaded "
+                   "on: cpu, cuda (the program is the same for both)")
+    p.add_argument("--batch", type=int, default=None,
+                   help="pin a static batch size (default: symbolic, any "
+                   "batch size at call time)")
+    p.add_argument("--with-latent", action="store_true",
+                   help="also ship the latent program, for `interpolate "
+                   "--from-exported` (~2x file size)")
+    p.add_argument("--check", action="store_true",
+                   help="reload the artifact and hold its waves to the "
+                   "in-process sampler's (relative L2 1e-3 in f32, 0.15 in "
+                   "bf16)")
+    p.add_argument("--stage", default="auto", help=_STAGE_HELP)
+    _add_common_train_flags(p)
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_export_model)
 
     p = sub.add_parser(
         "supervise",

@@ -9,7 +9,9 @@ use): in bf16 an implicit GEMM on Hopper's tensor cores (TMA loads into an
 mbarrier ring, ``wgmma``), which takes channel counts that are multiples
 of 8 (TMA's 16-byte strides); in f32 the FMA units, any channel count. For
 a CPU tensor it calls :func:`conv3x3_plain`. There is no fallback from one
-to the other.
+to the other. Both sit behind the operator ``gansynth_torch::conv3x3``, so
+a ``torch.export`` trace of a model that routes a conv here keeps K2 as one
+node of its program (``synth/export.py``).
 
 It is differentiable to any order, like the reference's custom VJP
 (``pallas_conv.py:261-290``): the input gradient is another
@@ -85,6 +87,24 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
     return y
 
 
+def _conv_cpu(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
+    if x.device.type != "cpu":
+        raise ValueError(f"conv3x3_same: unsupported device {x.device}")
+    return conv3x3_plain(x, weight)
+
+
+def _conv_fake(x, weight, role):
+    return x.new_empty((*x.shape[:3], weight.shape[0]))
+
+
+# K2 as an operator of its own, kept as one node by a torch.export trace.
+_conv_op = torch.library.custom_op("gansynth_torch::conv3x3", _conv_cpu,
+                                   mutates_args=())
+_conv_op.register_kernel("cuda")(_launch)
+_conv_op.register_fake(_conv_fake)
+_EAGER = {"cpu": _conv_cpu, "cuda": _launch}
+
+
 class _Conv3x3(torch.autograd.Function):
     """x NHWC, weight OIHW (in x's type) -> NHWC. ``role`` labels the launch
     count: ``"forward"`` for the model's call, ``"input_grad"`` for every
@@ -93,11 +113,9 @@ class _Conv3x3(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, role):
         ctx.save_for_backward(x, weight)
-        if x.device.type == "cpu":
-            return conv3x3_plain(x, weight)
-        if x.device.type != "cuda":
-            raise ValueError(f"conv3x3_same: unsupported device {x.device}")
-        return _launch(x, weight, role)
+        if type(x) is torch.Tensor:   # eager: no dispatcher, as for K1
+            return _EAGER.get(x.device.type, _conv_cpu)(x, weight, role)
+        return torch.ops.gansynth_torch.conv3x3(x, weight, role)
 
     @staticmethod
     def backward(ctx, g):

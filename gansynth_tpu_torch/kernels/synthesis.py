@@ -8,19 +8,21 @@ CUDA kernel of ``csrc/synthesis_spectrum.cu`` (built by ``nvcc`` on first
 use), one launch that gathers each linear bin's <= 2 mel taps (the
 nonzeros of the mel pseudo-inverse, from :func:`tap_tables`); for a CPU
 tensor it calls :func:`synthesis_spectrum_plain`. There is no fallback
-from one to the other.
+from one to the other. Both sit behind the operator
+``gansynth_torch::synthesis_spectrum``, which ``torch.export`` keeps as
+one node of an exported program (``synth/export.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from gansynth_tpu_torch.kernels._build import load_library
-from gansynth_tpu_torch.ops.spectral import mel_pinv
+from gansynth_tpu_torch.ops.spectral import constant_cache, mel_pinv
 from gansynth_tpu_torch.utils.config import AudioConfig, scale
 
 _PI = np.pi
@@ -74,7 +76,7 @@ def strip_spans(index: np.ndarray) -> np.ndarray:
     return spans
 
 
-@functools.lru_cache(maxsize=16)
+@constant_cache
 def _device_taps(config: AudioConfig, device: torch.device):
     """``(index, weight, strips, span_max)`` of the config's mel
     pseudo-inverse, the tables on ``device``."""
@@ -83,6 +85,15 @@ def _device_taps(config: AudioConfig, device: torch.device):
     span_max = max(2, int(strips[:, 1].max()))
     return (*(torch.from_numpy(a).to(device) for a in (index, weight, strips)),
             span_max)
+
+
+def _spectrum_plain(image: torch.Tensor, m2l: torch.Tensor,
+                    logmel_min: float, logmel_max: float, eps: float):
+    logmelmag2 = scale(image[..., 0], -1.0, 1.0, logmel_min, logmel_max)
+    mag2 = torch.exp(logmelmag2) @ m2l
+    mag = torch.sqrt(torch.clamp(mag2, min=0.0) + eps)
+    phase = torch.cumsum(image[..., 1] * _PI, dim=-2) @ m2l
+    return mag * torch.cos(phase), mag * torch.sin(phase)
 
 
 def synthesis_spectrum_plain(image: torch.Tensor, config: AudioConfig):
@@ -94,13 +105,9 @@ def synthesis_spectrum_plain(image: torch.Tensor, config: AudioConfig):
     rect. The CPU tests and the kernel's check on the card use it; the
     CUDA path of the port never calls it.
     """
-    m2l = mel_pinv(config, image.device)
-    logmelmag2 = scale(image[..., 0], -1.0, 1.0,
-                       config.logmel_min, config.logmel_max)
-    mag2 = torch.exp(logmelmag2) @ m2l
-    mag = torch.sqrt(torch.clamp(mag2, min=0.0) + config.logmel_eps)
-    phase = torch.cumsum(image[..., 1] * _PI, dim=-2) @ m2l
-    return mag * torch.cos(phase), mag * torch.sin(phase)
+    return _spectrum_plain(image, mel_pinv(config, image.device),
+                           config.logmel_min, config.logmel_max,
+                           config.logmel_eps)
 
 
 def _check(image: torch.Tensor, config: AudioConfig) -> None:
@@ -131,43 +138,81 @@ def _kernel(dtype: torch.dtype):
     return fn
 
 
-def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
-    """[B, 128, 1024, 2] f32 image -> (Re, Im) [B, 128, 1024] f32.
-
-    Launches the CUDA kernel for a CUDA tensor (and counts the launch in
-    ``synthesis_spectrum.launches``); takes the plain version for a CPU
-    tensor; raises on any other device or on a shape, type, layout or
-    alignment the kernel does not take.
-    """
-    _check(image, config)
-    if image.device.type == "cpu":
-        return synthesis_spectrum_plain(image, config)
-    if image.device.type != "cuda":
+def _spectrum_cpu(image: torch.Tensor, m2l: torch.Tensor, index: torch.Tensor,
+                  weight: torch.Tensor, strips: torch.Tensor, span_max: int,
+                  logmel_min: float, logmel_max: float,
+                  eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    if image.device.type != "cpu":
         raise ValueError(f"synthesis_spectrum: unsupported device {image.device}")
+    return _spectrum_plain(image, m2l, logmel_min, logmel_max, eps)
+
+
+def _spectrum_cuda(image, m2l, index, weight, strips, span_max, logmel_min,
+                   logmel_max, eps):
     if image.data_ptr() % 16:
         raise ValueError("synthesis_spectrum needs a 16-byte aligned image")
     batch, frames, mel_bins, _ = image.shape
-    freq_bins = config.num_freq_bins
+    freq_bins = index.shape[0]
     fn = _kernel(image.dtype)
-    index, weight, strips, span_max = _device_taps(config, image.device)
     re = torch.empty((batch, frames, freq_bins), dtype=torch.float32,
                      device=image.device)
     im = torch.empty_like(re)
     # Inverse of scale(x, logmel_min, logmel_max, -1, 1): x * a + b.
-    a = (config.logmel_max - config.logmel_min) / 2.0
-    b = (config.logmel_max + config.logmel_min) / 2.0
+    a = (logmel_max - logmel_min) / 2.0
+    b = (logmel_max + logmel_min) / 2.0
     with torch.cuda.device(image.device):
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = fn(image.data_ptr(), index.data_ptr(), weight.data_ptr(),
                  strips.data_ptr(), strips.shape[0], span_max, re.data_ptr(),
                  im.data_ptr(), batch, frames, mel_bins, freq_bins, a, b,
-                 config.logmel_eps, stream)
+                 eps, stream)
     if err != 0:
         raise RuntimeError(
             f"synthesis_spectrum kernel launch failed: cudaError {err}"
         )
     synthesis_spectrum.launches += 1
     return re, im
+
+
+def _spectrum_fake(image, m2l, index, weight, strips, span_max, logmel_min,
+                   logmel_max, eps):
+    if image.dim() != 4 or image.shape[-1] != 2:
+        raise ValueError(f"synthesis_spectrum needs an image [B, T, M, 2], "
+                         f"got {tuple(image.shape)}")
+    shape = (image.shape[0], image.shape[1], index.shape[0])
+    return image.new_empty(shape), image.new_empty(shape)
+
+
+# K1 as an operator of its own, so that a torch.export trace keeps it as one
+# node (serialized by name, dispatched by the device at run time) and an
+# exported sampler launches the kernel wherever it runs. The tables ride
+# as inputs, so the program carries them; ``m2l`` feeds the CPU version.
+_spectrum_op = torch.library.custom_op(
+    "gansynth_torch::synthesis_spectrum", _spectrum_cpu, mutates_args=())
+_spectrum_op.register_kernel("cuda")(_spectrum_cuda)
+_spectrum_op.register_fake(_spectrum_fake)
+_EAGER = {"cpu": _spectrum_cpu, "cuda": _spectrum_cuda}
+
+
+def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
+    """[B, 128, 1024, 2] f32 image -> (Re, Im) [B, 128, 1024] f32.
+
+    Launches the CUDA kernel for a CUDA tensor (and counts the launch in
+    ``synthesis_spectrum.launches``); takes the plain version for a CPU
+    tensor; raises on any other device or on a shape, type, layout or
+    alignment the kernel does not take. Under a trace (a tensor subclass)
+    it calls the operator ``gansynth_torch::synthesis_spectrum``, whose
+    kernels these are; eagerly it calls them directly, which spares the
+    dispatcher's host time (tens of microseconds a call).
+    """
+    _check(image, config)
+    index, weight, strips, span_max = _device_taps(config, image.device)
+    args = (image, mel_pinv(config, image.device), index, weight, strips,
+            span_max, config.logmel_min, config.logmel_max,
+            config.logmel_eps)
+    if type(image) is torch.Tensor:
+        return _EAGER.get(image.device.type, _spectrum_cpu)(*args)
+    return torch.ops.gansynth_torch.synthesis_spectrum(*args)
 
 
 synthesis_spectrum.launches = 0

@@ -16,7 +16,9 @@ Both directions of the reference:
 
 All spectral math stays float32. The numpy constant builders (windows,
 mel matrices, DFT and iDFT matrices) are the reference's, built in float64
-and stored float32; each is moved to a device once and cached.
+and stored float32; each is moved to a device once and cached
+(:func:`constant_cache`, which holds real tensors even when a
+``torch.export`` trace is the first caller).
 
 Array layout as in the reference: waves ``[..., time]``, spectrograms
 ``[..., frames, bins]``, images ``[..., frames, bins, 2]`` with channel 0
@@ -30,6 +32,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from gansynth_tpu_torch.ops.mel import linear_to_mel_matrix, mel_to_linear_matrix
 from gansynth_tpu_torch.ops.windows import hann_window, inverse_stft_window
@@ -163,7 +166,31 @@ def _mel_matrices(config: AudioConfig) -> Tuple[np.ndarray, np.ndarray]:
     return l2m, mel_to_linear_matrix(l2m)
 
 
-@functools.lru_cache(maxsize=16)
+def constant_cache(build):
+    """``functools.lru_cache`` (16 entries) for a builder of constant
+    tensors, which runs with torch's dispatch modes and inference mode
+    off.
+
+    Under ``torch.export`` every tensor made inside the trace is a fake
+    (traced) tensor; cached, it would come back to every later eager call,
+    which then computes on tensor subclasses. With the modes off the
+    builder makes real tensors, whoever calls first, and a trace takes
+    them as constants of its program. With inference mode off, a first
+    call from a sampler does not leave inference tensors, which autograd
+    refuses to save, to a later caller that records gradients. A hit
+    costs what an ``lru_cache`` hit costs.
+    """
+
+    @functools.lru_cache(maxsize=16)
+    @functools.wraps(build)
+    def get(*args):
+        with _disable_current_modes(), torch.inference_mode(False):
+            return build(*args)
+
+    return get
+
+
+@constant_cache
 def _device_constants(config: AudioConfig, device: torch.device):
     """The float32 constants of the synthesis path on ``device``:
     ``(m2l [M, F], idft_c [N/2+1, N], idft_d [N/2+1, N], window [N])``."""
@@ -179,7 +206,7 @@ def _device_constants(config: AudioConfig, device: torch.device):
     )
 
 
-@functools.lru_cache(maxsize=16)
+@constant_cache
 def _analysis_constants(config: AudioConfig, device: torch.device):
     """The float32 constants of the analysis path on ``device``:
     ``(l2m [F, M], hann [N])``, and the DFT matrices ``(A, B)`` when
@@ -329,9 +356,10 @@ def image_to_wave(image: torch.Tensor,
     """GAN image [..., 128, 1024, 2] f32 -> wave [..., 64000].
 
     ``synthesis_kernel``: ``"xla"`` takes the plain PyTorch path;
-    ``"pallas"`` and ``"auto"`` take the CUDA kernel
-    (``kernels.synthesis.synthesis_spectrum``) for a CUDA tensor and the
-    plain path for a CPU tensor.
+    ``"pallas"`` and ``"auto"`` take the synthesis operator
+    (``kernels.synthesis.synthesis_spectrum``), which launches the CUDA
+    kernel for a CUDA tensor and runs the plain path for a CPU tensor, so
+    a ``torch.export`` trace on either device holds the kernel.
     """
     if image.shape[-1] != 2:
         raise ValueError(
@@ -343,7 +371,7 @@ def image_to_wave(image: torch.Tensor,
         raise ValueError(
             f"synthesis_kernel {kern!r} is not one of 'auto'/'xla'/'pallas'"
         )
-    if kern != "xla" and image.is_cuda:
+    if kern != "xla":
         from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
 
         lead = image.shape[:-3]

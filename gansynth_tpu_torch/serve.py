@@ -15,6 +15,10 @@ it was batched with (up to the last float bits between rungs).
 
 A full queue answers 429, a request not served in time 504 (and is
 abandoned, never served late).
+
+The service runs either a restored generator through the in-process
+seeded sampler or a loaded ``.gsx`` artifact (``synth/export.py``,
+``cli serve --from-exported``), with no generator in the service.
 """
 
 from __future__ import annotations
@@ -71,26 +75,40 @@ class SynthesisService:
     """The warmed seeded sampler and the coalescing batcher.
 
     ``generator`` is the port's ``Generator`` with its weights, on the
-    device the service runs on. Call :meth:`close` to stop the batcher.
+    device the service runs on; or ``generator`` is None and ``exported``
+    a loaded artifact (``synth.export.ExportedSampler``) with a symbolic
+    batch, whose program every rung calls. Call :meth:`close` to stop the
+    batcher.
     """
 
     def __init__(
         self,
         config: Config,
-        generator: torch.nn.Module,
+        generator: Optional[torch.nn.Module],
         *,
         stage: Optional[int] = None,
         max_batch: int = 16,
         max_queue_notes: int = 256,
         request_timeout_s: float = 30.0,
+        exported=None,
     ):
         from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
 
         self.config = config
-        self.device = next(generator.parameters()).device
         self.max_queue_notes = max_queue_notes
         self.request_timeout_s = request_timeout_s
-        self._sample = make_seeded_sampler(config, generator, stage=stage)
+        self.exported = exported is not None
+        if exported is not None:
+            if exported.meta.get("batch") != "symbolic":
+                raise ValueError(
+                    "serving needs a symbolic-batch artifact (export "
+                    "without --batch); this one is pinned to batch "
+                    f"{exported.meta.get('batch')}")
+            self.device = exported.device
+            self._sample = exported
+        else:
+            self.device = next(generator.parameters()).device
+            self._sample = make_seeded_sampler(config, generator, stage=stage)
         self.max_batch = max_batch
         self.batch_ladder = batch_ladder(max_batch)
         self.requests_served = 0
@@ -247,6 +265,7 @@ class SynthesisService:
                 "request_timeout_s": self.request_timeout_s,
                 "num_pitches": self.config.model.num_pitches,
                 "sample_rate": self.config.audio.sample_rate,
+                "exported_artifact": self.exported,
                 # A note's audio is a function of (weights, seed, pitch) per
                 # batch rung; two rungs may differ in the last float bits.
                 "determinism": "per-rung",

@@ -12,7 +12,7 @@ The bit layout is JAX's ``jax_threefry_partitionable=True`` one (the
 default since JAX 0.5): element ``i`` of the output draws from the
 counter pair ``(i >> 32, i & 0xFFFFFFFF)`` and keeps ``y0 ^ y1``. The
 uniform bits match JAX bitwise; the normal values match to the last ulp
-or so, since ``log1p``/``sqrt`` of two libraries may round differently.
+or so, since XLA's float32 ``log1p`` is not correctly rounded.
 
 The training step's noise follows the reference's key schedule
 (``gansynth_tpu/train/step.py:76-77``): ``fold_in`` the step into the
@@ -24,8 +24,14 @@ cached_batch_indices``) come from :func:`permutation` and :func:`randint`,
 which equal ``jax.random``'s bit for bit, so the port reads the
 reference's batches from the same key and step.
 
-Latents are small (256 floats a note), so they are drawn on the host in
-numpy and handed to the device afterwards.
+Latents are small (256 floats a note), so the in-process samplers draw
+them on the host in numpy and hand them to the device afterwards. The
+exported sampler (``synth/export.py``) draws them inside its program with
+:func:`seeded_latents_torch`, the same generator in torch ops on int64
+tensors masked to 32 bits (torch has no uint32 arithmetic): its uniform
+bits equal numpy's, and so do its normals on the CPU, since both take
+``log1p`` in float64 (on an H100 the exported program's waves equal the
+host-drawn sampler's to the bit).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import math
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = np.uint32(0x1BD11BDA)
@@ -120,9 +127,15 @@ def random_bits(key: Tuple[int, int], shape: Sequence[int]) -> np.ndarray:
 
 
 def _erfinv_f32(x: np.ndarray) -> np.ndarray:
-    """XLA's float32 erfinv: a degree-8 polynomial in ``w = -log1p(-x^2)``."""
+    """XLA's float32 erfinv: a degree-8 polynomial in ``w = -log1p(-x^2)``.
+
+    ``log1p`` is taken in float64 and rounded to float32: numpy's float32
+    ``log1p`` is not correctly rounded and may change with the host's
+    vector units, and one ulp of ``w`` moves a normal by up to 3 ulps.
+    Rounded from float64, it is the same on every host and in torch
+    (:func:`_erfinv_f32_torch`), and as close to XLA's."""
     x = x.astype(np.float32)
-    w = -np.log1p(x * -x)
+    w = -np.log1p((x * -x).astype(np.float64)).astype(np.float32)
     lt = w < np.float32(5.0)
     w = np.where(lt, w - np.float32(2.5),
                  np.sqrt(w) - np.float32(3.0)).astype(np.float32)
@@ -171,6 +184,61 @@ def seeded_latents(seeds: Sequence[int], latent_dim: int) -> np.ndarray:
     keys = np.array([seed_to_key(s) for s in seeds],
                     np.uint32).reshape(-1, 2)
     return _normal_from_bits(_bits((keys[:, :1], keys[:, 1:]), latent_dim))
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _threefry2x32_torch(k0: torch.Tensor, k1: torch.Tensor,
+                        x0: torch.Tensor, x1: torch.Tensor):
+    """:func:`threefry2x32` on int64 tensors that hold uint32 words (every
+    sum is masked back to 32 bits); the operands broadcast."""
+    ks = (k0, k1, k0 ^ k1 ^ int(_PARITY))
+    x0 = (x0 + ks[0]) & _MASK32
+    x1 = (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = ((x1 << r) & _MASK32) | (x1 >> (32 - r))
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK32
+    return x0, x1
+
+
+def seeded_latents_torch(seeds: torch.Tensor, latent_dim: int) -> torch.Tensor:
+    """:func:`seeded_latents` in torch ops on ``seeds``' device: int32
+    seeds [B] -> float32 latents [B, latent_dim], traceable by
+    ``torch.export`` with a symbolic B. Row i draws counters
+    0..latent_dim-1 under the key ``(0, uint32(seeds[i]))``."""
+    k1 = seeds.to(torch.int64).reshape(-1, 1) & _MASK32
+    k0 = torch.zeros_like(k1)
+    lo = torch.arange(latent_dim, dtype=torch.int64, device=seeds.device)
+    y0, y1 = _threefry2x32_torch(k0, k1, torch.zeros_like(lo), lo)
+    bits = y0 ^ y1
+    # uniform_from_bits on (-1, 1): 23 mantissa bits under exponent 0 (the
+    # int64 holds < 2^31 here, so the int32 view is exact).
+    lo_f = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    width = float(np.float32(1.0) - np.float32(lo_f))
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    u = torch.clamp_min((floats - 1.0) * width + lo_f, lo_f)
+    return float(np.float32(np.sqrt(2))) * _erfinv_f32_torch(u)
+
+
+def _erfinv_f32_torch(x: torch.Tensor) -> torch.Tensor:
+    """:func:`_erfinv_f32` in torch ops: float32 apart from ``log1p``,
+    which is rounded from float64 as there, and ``sqrt``, taken in float64
+    too (torch's float32 ``sqrt`` on the CPU is not always correctly
+    rounded; rounded from float64 it is, as numpy's is)."""
+    w = -torch.log1p((x * -x).double()).float()
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(lt, _ERFINV_W_LT_5[0], _ERFINV_W_GE_5[0])
+    for lo_c, hi_c in zip(_ERFINV_W_LT_5[1:], _ERFINV_W_GE_5[1:]):
+        p = torch.where(lt, float(np.float32(lo_c)),
+                        float(np.float32(hi_c))) + p * w
+    out = p * x
+    return torch.where(x.abs() == 1, x * float("inf"), out)
 
 
 def permutation(key: Key, n: int) -> np.ndarray:

@@ -9,7 +9,11 @@
 Each ``make_*`` returns a plain function that runs under
 ``torch.inference_mode`` on the generator's device. :class:`Sampler` holds
 a restored EMA generator with its config and stage, as the reference's
-does, for ``generate`` and ``evaluate``.
+does, for ``generate`` and ``evaluate``. :class:`SeededProgram` and
+:class:`LatentProgram` are the same bodies as modules that ``torch.export``
+traces (``synth/export.py``; the reference's ``_seeded_body`` and
+``_latent_body``): the seeded one draws its latents in torch ops inside
+the program.
 """
 
 from __future__ import annotations
@@ -20,7 +24,12 @@ import torch
 
 from gansynth_tpu_torch.models.layers import upsample_nearest
 from gansynth_tpu_torch.ops.spectral import image_to_wave
-from gansynth_tpu_torch.synth.random import Key, normal, seeded_latents
+from gansynth_tpu_torch.synth.random import (
+    Key,
+    normal,
+    seeded_latents,
+    seeded_latents_torch,
+)
 from gansynth_tpu_torch.utils.config import Config
 
 
@@ -38,6 +47,42 @@ def _full_wave(config: Config, image: torch.Tensor, stage: int) -> torch.Tensor:
     return image_to_wave(full, config.audio)
 
 
+def _render(config: Config, generator: torch.nn.Module, stage: int,
+            z: torch.Tensor, labels: torch.Tensor):
+    """``(wave [B, 64000], image)`` of latents and pitch labels: every
+    sampler's body."""
+    image = generator(z, labels, stage, 1.0)
+    return _full_wave(config, image, stage), image
+
+
+class LatentProgram(torch.nn.Module):
+    """``(z [B, D] f32, labels [B, num_pitches] f32) -> wave [B, 64000]``:
+    :func:`make_latent_sampler`'s body as a module, without the image
+    (the reference's ``_latent_body`` as ``synth/export.py`` exports it)."""
+
+    def __init__(self, config: Config, generator: torch.nn.Module,
+                 stage: int):
+        super().__init__()
+        self.config = config
+        self.generator = generator
+        self.stage = stage
+
+    def forward(self, z: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        return _render(self.config, self.generator, self.stage, z.float(),
+                       labels.float())[0]
+
+
+class SeededProgram(LatentProgram):
+    """``(seeds [B] int32, pitch [B] int32) -> wave [B, 64000]``: note i's
+    latent drawn in the program from ``jax.random.key(seeds[i])`` by
+    :func:`seeded_latents_torch` (the reference's ``_seeded_body``)."""
+
+    def forward(self, seeds: torch.Tensor,  # type: ignore[override]
+                pitch: torch.Tensor) -> torch.Tensor:
+        z = seeded_latents_torch(seeds, self.config.model.latent_dim)
+        return super().forward(z, pitch_to_onehot(pitch, self.config))
+
+
 def _device_of(generator: torch.nn.Module) -> torch.device:
     return next(generator.parameters()).device
 
@@ -53,8 +98,7 @@ def make_latent_sampler(config: Config, generator: torch.nn.Module,
     def sample(z, labels):
         z = torch.as_tensor(z, dtype=torch.float32, device=device)
         labels = torch.as_tensor(labels, dtype=torch.float32, device=device)
-        image = generator(z, labels, stage, 1.0)
-        return _full_wave(config, image, stage), image
+        return _render(config, generator, stage, z, labels)
 
     return sample
 
@@ -74,8 +118,8 @@ def make_sampler(config: Config, generator: torch.nn.Module,
         pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
         z = torch.from_numpy(
             normal(key, (pitch.shape[0], config.model.latent_dim))).to(device)
-        image = generator(z, pitch_to_onehot(pitch, config), stage, 1.0)
-        return _full_wave(config, image, stage), image
+        return _render(config, generator, stage, z,
+                       pitch_to_onehot(pitch, config))
 
     return sample
 
@@ -97,8 +141,8 @@ def make_seeded_sampler(config: Config, generator: torch.nn.Module,
             seeded_latents(seeds, config.model.latent_dim)
         ).to(device)
         pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
-        image = generator(z, pitch_to_onehot(pitch, config), stage, 1.0)
-        return _full_wave(config, image, stage)
+        return _render(config, generator, stage, z,
+                       pitch_to_onehot(pitch, config))[0]
 
     return sample
 

@@ -30,7 +30,7 @@ raced a supervised child's start.
 
 The reference's mesh arguments (``mesh``, ``use_mesh``,
 ``device_cache_layout="shard"``) raise ``NotImplementedError``: data
-parallelism is ``ROADMAP.md`` queue 1 item 8.
+parallelism is ``ROADMAP.md`` queue 1 item 4.
 """
 
 from __future__ import annotations
@@ -144,7 +144,7 @@ def train(
             or config.train.device_cache_layout == "shard":
         raise NotImplementedError(
             "data parallelism (mesh, use_mesh, device_cache_layout="
-            "'shard') is not ported yet: ROADMAP.md queue 1 item 8")
+            "'shard') is not ported yet: ROADMAP.md queue 1 item 4")
     device = resolve_device(device)
     schedule = schedule_from_config(config)
     unroll = max(1, int(config.train.unroll))

@@ -88,10 +88,10 @@ def test_dump_config_matches_the_reference(flags, tiny_config, capsys,
 
 @pytest.mark.parametrize("flags,word", [
     (["--ingest", "tf"], "TensorFlow"),
-    (["--data-parallel"], "queue 1 item 8"),
-    (["--multihost"], "queue 1 item 8"),
-    (["--mbstd", "per-replica"], "queue 1 item 8"),
-    (["--device-cache-layout", "shard"], "queue 1 item 8"),
+    (["--data-parallel"], "queue 1 item 4"),
+    (["--multihost"], "queue 1 item 4"),
+    (["--mbstd", "per-replica"], "queue 1 item 4"),
+    (["--device-cache-layout", "shard"], "queue 1 item 4"),
 ])
 def test_refused_flags_exit_2(flags, word, tmp_path, capsys):
     argv = ["train", "--model-dir", str(tmp_path), "--synthetic",

@@ -1,4 +1,5 @@
-"""Card-only tests of the port: each CUDA kernel against its plain version.
+"""Card-only tests of the port: each CUDA kernel against its plain version,
+and an exported sampler that launches K1 from its program.
 
 Marked ``gpu``; each test skips unless ``torch.cuda.is_available()``. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -306,3 +307,40 @@ def test_flagship_bf16_generator_matches_reference_file(cuda_device,
     launched = K2.conv3x3_same.launches["forward"] - before
     assert launched == (3 if conv_kernel == "pallas" else 0)
     ref.check(got.cpu().numpy(), d["image"])
+
+
+@pytest.mark.gpu
+def test_exported_sampler_launches_the_kernel(cuda_device, tmp_path):
+    """A tiny model exported on the card keeps K1 in its program: loaded on
+    the card it launches the kernel (waves within export-model --check's
+    1e-3 of the in-process sampler's), and loaded on the CPU it runs the
+    plain version (within the synthesis bar of the card's waves)."""
+    from gansynth_tpu_torch.models.generator import Generator
+    from gansynth_tpu_torch.synth.export import (
+        load_sampler_artifact,
+        save_sampler_artifact,
+    )
+    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+    from gansynth_tpu_torch.utils.config import Config, ModelConfig
+
+    config = Config(model=ModelConfig(latent_dim=8, fmap_base=64,
+                                      fmap_max=16, fmap_min=8))
+    gen = Generator(config.model, generator=torch.Generator().manual_seed(0))
+    gen = gen.to(cuda_device)
+    path = save_sampler_artifact(str(tmp_path / "s.gsx"), config, gen,
+                                 step=1, stage=2)
+    on_card = load_sampler_artifact(path, "cuda")
+    seeds, pitch = [0, 1, 2], [30, 60, 84]
+    before = K.synthesis_spectrum.launches
+    got = on_card(seeds, pitch)
+    torch.cuda.synchronize()
+    assert K.synthesis_spectrum.launches == before + 1
+    want = make_seeded_sampler(config, gen, 2)(seeds, pitch)
+    rel = float((got - want).norm() / want.norm())
+    assert rel <= 1e-3
+    on_cpu = load_sampler_artifact(path, "cpu")
+    cpu = on_cpu(seeds, pitch)
+    assert cpu.device.type == "cpu"
+    # one more from the in-process sampler, none from the CPU
+    assert K.synthesis_spectrum.launches == before + 2
+    _wave_bar(cpu, got.cpu())

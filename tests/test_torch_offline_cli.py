@@ -14,14 +14,22 @@ on one tiny run directory (``tests/torch_tiny_run.py``), on the CPU.
   schedule's stage where ``ema.npz`` records none (and renders there,
   below the final stage, as the reference does); ``--latent-dim`` and
   ``--config`` over ``train_config.json``. ``serve`` restores through it.
-- ``interpolate --from-exported`` is refused with exit 2; without
-  ``--device cpu`` and without a card, the commands raise.
+- ``interpolate --from-exported`` renders from an ``export-model
+  --with-latent`` artifact what ``--model-dir`` renders, and exits 2 on a
+  seeded-only artifact; ``serve --from-exported`` answers over HTTP with
+  no run directory. Without ``--device cpu`` and without a card, the
+  commands raise.
 """
 
 import dataclasses
 import json
 import os
 import re
+import socket
+import subprocess
+import sys
+import time
+import urllib.request
 
 import jax
 import numpy as np
@@ -35,6 +43,10 @@ from gansynth_tpu.train.state import create_train_state as j_state
 from gansynth_tpu.utils.checkpoint import Checkpointer as JCheckpointer
 from gansynth_tpu_torch import cli
 from gansynth_tpu_torch import serve as tserve
+from gansynth_tpu_torch.synth.export import (
+    load_sampler_artifact,
+    save_sampler_artifact,
+)
 from gansynth_tpu_torch.train.state import create_train_state
 from gansynth_tpu_torch.utils.audio_io import read_wav
 from gansynth_tpu_torch.utils.checkpoint import Checkpointer, to_jax_params
@@ -160,11 +172,94 @@ def test_roundtrip_prints_the_reference_snr(pitch, capsys, tmp_path):
     assert read_wav(out)[0].shape == (64000,)
 
 
-def test_interpolate_from_exported_is_refused(tmp_path, capsys):
-    assert cli.main(["interpolate", "--from-exported", "x.gsx",
+@pytest.fixture(scope="module")
+def exported(run, tmp_path_factory):
+    """``(seeded-only, seeded + latent)`` artifacts of the run."""
+    out = tmp_path_factory.mktemp("gsx")
+    paths = (str(out / "seeded.gsx"), str(out / "both.gsx"))
+    for path, flags in zip(paths, ([], ["--with-latent"])):
+        assert cli.main(["export-model", "--model-dir", run, "--output",
+                         path, *flags, *CPU]) == 0
+    return paths
+
+
+def test_interpolate_from_exported_renders_what_the_run_renders(
+        run, exported, tmp_path):
+    flags = ["--pitch", "60", "--pitch-b", "67", "--steps", "3", *CPU]
+    assert cli.main(["interpolate", "--model-dir", run, "--output-dir",
+                     str(tmp_path / "run"), *flags]) == 0
+    assert cli.main(["interpolate", "--from-exported", exported[1],
+                     "--output-dir", str(tmp_path / "gsx"), *flags]) == 0
+    names = sorted(os.listdir(tmp_path / "run"))
+    assert names == sorted(os.listdir(tmp_path / "gsx")) and len(names) == 4
+    for name in names:
+        want, got = (read_wav(str(tmp_path / d / name))[0]
+                     for d in ("run", "gsx"))
+        rel = np.linalg.norm(want - got) / (np.linalg.norm(want) + 1e-30)
+        assert rel <= 1e-3, (name, rel)   # export-model --check's bound
+
+
+def test_interpolate_from_a_seeded_only_artifact_exits_2(exported, tmp_path,
+                                                        capsys):
+    assert cli.main(["interpolate", "--from-exported", exported[0],
                      "--output-dir", str(tmp_path), *CPU]) == 2
-    assert "ROADMAP.md" in capsys.readouterr().err
+    assert "--with-latent" in capsys.readouterr().err
     assert not os.listdir(tmp_path)
+    junk = tmp_path / "junk.gsx"
+    junk.write_bytes(b"garbage")
+    assert cli.main(["interpolate", "--from-exported", str(junk),
+                     "--output-dir", str(tmp_path / "out"), *CPU]) == 2
+    assert cli.main(["interpolate", "--output-dir", str(tmp_path),
+                     *CPU]) == 2
+
+
+def test_serve_from_exported_answers_over_http(exported, params, tmp_path):
+    """``serve --from-exported`` as a process of its own: no run directory,
+    one request answered, ``exported_artifact`` in ``/healthz``; a pinned
+    batch is refused."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]), OMP_NUM_THREADS="2")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    argv = [sys.executable, "-m", "gansynth_tpu_torch.cli", "serve",
+            "--from-exported", exported[0], "--port", str(port),
+            "--max-batch", "1", *CPU]
+    proc = subprocess.Popen(argv, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.time() + 120
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=10) as resp:
+                    health = json.loads(resp.read())
+                break
+            except OSError:
+                if proc.poll() is not None or time.time() > deadline:
+                    raise AssertionError(proc.communicate(timeout=30)[0])
+                time.sleep(0.5)
+        assert health["exported_artifact"] is True
+        assert health["device"] == "cpu"
+        body = json.dumps({"pitches": [60], "seed": 3}).encode()
+        req = urllib.request.Request(url + "/synthesize", data=body)
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            assert resp.status == 200
+            wav = resp.read()
+        assert wav[:4] == b"RIFF" and len(wav) == 44 + 2 * 64000
+    finally:
+        proc.terminate()
+        proc.wait(timeout=60)
+    pinned = str(tmp_path / "pinned.gsx")
+    src = load_sampler_artifact(exported[0], "cpu")
+    save_sampler_artifact(pinned, src.config(), tiny.port_generator(params),
+                          step=1, stage=src.stage, batch=2)
+    loaded = load_sampler_artifact(pinned, "cpu")
+    with pytest.raises(ValueError, match="symbolic"):
+        tserve.SynthesisService(loaded.config(), None, exported=loaded)
+    assert cli.main(["serve", "--from-exported", pinned, *CPU]) == 2
 
 
 @pytest.mark.parametrize("command", ["generate", "evaluate", "roundtrip"])

@@ -237,6 +237,6 @@ def test_keyed_sampler_matches_the_reference(stage):
 ])
 def test_mesh_arguments_are_refused(dataset, kwargs):
     config = kwargs.pop("config", _config())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         train(config, None, num_steps=1, device_dataset=dataset,
               device="cpu", **kwargs)
