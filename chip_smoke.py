@@ -97,7 +97,27 @@ raises, so the exit code is non-zero):
     training loop's, the offline CLI's and the exported sampler's), error, times (K2 at every
     shape; the library call also under ``cudnn.benchmark``; the fraction
     of the bound reached) and its registers, spills and shared memory
-    from ``ptxas``; the total seconds; and the result line.
+    from ``ptxas``; the total seconds; and the result line;
+14. data parallel, run before phase 13's line, which lists its launches
+    (``dp_launches``, ``remat_launches``, ``remat_recompute_launches``):
+    ``cli train --data-parallel --synthetic --device-cache`` on phase
+    10's seed (the flagship at 415000, kernels on) for ``LOOP_CADENCE``
+    steps, first as a process of its own (it starts one worker per card
+    in an NCCL group), then with ``--device-cache-layout shard`` and with
+    ``--mbstd per-replica`` through ``cli.main`` in an NCCL group of one
+    rank set up here, K2's and K3's launches counted; each run's G, D and
+    EMA at 415010 within twice phase 10's A-vs-repeat distance of run A
+    there (0 where the step repeats to the bit). The card has one GPU, so
+    the group has one rank; the multi-rank numerics are the CPU tests'
+    (``tests/test_torch_parallel.py``). Then the stage-6 step with and
+    without the group in turns (``DP_TURNS``), the all-reduces a step
+    makes timed with CUDA events, and peak memory; the float32 stage-6
+    step with ``remat=True`` against ``remat=False`` from one state:
+    metric by metric (phase 9's bar), peak memory, ms a step and the
+    recompute's launches; and ``serve --data-parallel`` on the flagship
+    (``cli.make_service``): each request alone equal to the in-process
+    service's reply, the 4 concurrent requests over HTTP within the bf16
+    bound, K1 counted. One ``{"data_parallel": ...}`` line.
 
 The script exits non-zero, printing no result, where CUDA is not
 available or the port is not beside it. It writes nothing outside
@@ -836,6 +856,13 @@ def train_loop(card, single_step_ms):
                 f"resumed run B differs from run A by {b_vs_a} (max abs), "
                 f"more than twice the repeat's {a_vs_repeat}")
     del a, rep, b
+    # what phase 14's data-parallel runs are held to: run A at `mid`, and
+    # how far a repeat of it lands there
+    a_mid = {k: v.cpu() for k, v in loop_params(run_a, mid).items()}
+    rep_mid = loop_params(run_r, mid)
+    a_vs_repeat_mid = {k: float((a_mid[k] - rep_mid[k].cpu()).abs().max())
+                       for k in a_mid}
+    del rep_mid
     torch.cuda.empty_cache()
 
     run_s = loop_dir("stop")
@@ -893,8 +920,9 @@ def train_loop(card, single_step_ms):
         "peak_mem_gib": peak_gib, "cached_notes": LOOP_NOTES, "card": card,
     }
     print(json.dumps({"train_loop": out}), flush=True)
-    shutil.rmtree(LOOP_DIR, ignore_errors=True)
-    return out
+    for name in ("a", "a_repeat", "b", "stop"):   # phase 14 takes the seed
+        shutil.rmtree(os.path.join(LOOP_DIR, name))
+    return out, {"params_mid": a_mid, "a_vs_repeat_mid": a_vs_repeat_mid}
 
 
 # The offline phase's evaluate against the JAX package's on the CPU
@@ -1486,6 +1514,274 @@ def export_phase(card, config):
     return out
 
 
+# Phase 14: `cli train --data-parallel` runs of one superstep from phase
+# 10's seed, held to phase 10's run A at its first checkpoint.
+DP_RUNS = {"replicate": [],
+           "shard": ["--device-cache-layout", "shard"],
+           "per_replica": ["--mbstd", "per-replica"]}
+DP_TURNS = 3   # in-turns rounds of the step timing, DP_TURN_STEPS steps each
+DP_TURN_STEPS = 3
+
+
+def _kernel_counts():
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+
+    return {"conv3x3_forward": conv3x3_same.launches["forward"],
+            "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
+            "conv3x3_recompute": conv3x3_same.launches["recompute"],
+            "dblock": fused_dblock.launches,
+            "dblock_recompute": fused_dblock.recompute_launches}
+
+
+def _zero_kernel_counts():
+    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+
+    conv3x3_same.launches.update(forward=0, input_grad=0, recompute=0)
+    fused_dblock.launches = fused_dblock.recompute_launches = 0
+
+
+def dp_step_timing(device, mesh):
+    """The flagship's stage-6 step (bf16, kernels on) with and without the
+    process group, DP_TURNS rounds in turns of DP_TURN_STEPS steps each
+    (CUDA events), the group's peak memory, and the all-reduces a DP step
+    makes (G's and D's gradient buckets and the metrics) timed with CUDA
+    events, 20 repeats."""
+    import torch
+
+    from gansynth_tpu_torch.train.step import make_train_step
+
+    config = training_config()
+    state, stage, alpha, waves, pitches = training_setup(config, device)
+    fns = {"no_group": make_train_step(config, stage),
+           "group": make_train_step(config, stage, mesh)}
+    for fn in fns.values():
+        fn(state, waves, pitches, alpha)
+    times = {k: [] for k in fns}
+    peak = 0.0
+    for _ in range(DP_TURNS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(DP_TURN_STEPS):
+                fn(state, waves, pitches, alpha)
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / DP_TURN_STEPS)
+            if name == "group":
+                peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    buckets = [torch.zeros(sum(p.numel() for p in net.parameters()),
+                           device=device) for net in (state.g, state.d)]
+    buckets.append(torch.zeros(16, device=device))
+    for b in buckets:
+        mesh.all_reduce_mean(b)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(20):
+        for b in buckets:
+            mesh.all_reduce_mean(b)
+    end.record()
+    torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
+    return {"step_ms": times,
+            "median_step_ms": {k: statistics.median(v)
+                               for k, v in times.items()},
+            "all_reduce_ms_per_step": start.elapsed_time(end) / 20,
+            "all_reduce_bucket_elements": [b.numel() for b in buckets],
+            "peak_mem_gib_group": peak}
+
+
+def remat_step(device):
+    """The stage-6 step in float32 (kernels on) with ``remat=False`` and
+    ``remat=True`` from one state: metric by metric (phase 9's bar), the
+    step's peak memory, ms a step over 3 steps (CUDA events), and the
+    kernels' launches (the recompute's apart)."""
+    import torch
+
+    from gansynth_tpu_torch.train.step import make_train_step
+
+    out = {}
+    for remat in (False, True):
+        config = training_config("float32").with_overrides(
+            {"model": {"remat": remat}})
+        state, stage, alpha, waves, pitches = training_setup(config, device)
+        step = make_train_step(config, stage)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _zero_kernel_counts()
+        _, m = step(state, waves, pitches, alpha)
+        torch.cuda.synchronize()
+        launches = _kernel_counts()
+        peak = torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            step(state, waves, pitches, alpha)
+        end.record()
+        torch.cuda.synchronize()
+        out["remat" if remat else "plain"] = {
+            "metrics": {k: float(v) for k, v in m.items()},
+            "peak_mem_gib": peak / 2 ** 30,
+            "step_peak_over_state_gib": (peak - base) / 2 ** 30,
+            "ms_per_step": start.elapsed_time(end) / 3,
+            "launches": launches}
+        del state
+        torch.cuda.empty_cache()
+    plain, remat = out["plain"]["metrics"], out["remat"]["metrics"]
+    errs = {k: abs(remat[k] - plain[k]) for k in plain}
+    out["abs_err"] = errs
+    out["worst_scaled_err"] = max(errs[k] / max(1.0, abs(plain[k]))
+                                  for k in plain)
+    if not out["worst_scaled_err"] <= STEP_BAR:
+        raise AssertionError(f"remat vs plain step: {errs} (bar {STEP_BAR})")
+    rc = out["remat"]["launches"]
+    if not (rc["conv3x3_recompute"] and rc["dblock_recompute"]):
+        raise AssertionError(f"remat recomputed no kernel: {rc}")
+    if out["remat"]["peak_mem_gib"] >= out["plain"]["peak_mem_gib"]:
+        raise AssertionError(f"remat's peak is not lower: {out}")
+    return out
+
+
+def serve_data_parallel(config, generator, stage):
+    """``serve --data-parallel`` on the flagship (``cli.make_service``: a
+    replica per visible card): each request once alone, equal to the
+    in-process service's reply at the same rung, then the 4 concurrent
+    requests over HTTP, each within the bf16 bound of the in-process
+    sampler's waves; K1 counted from the service's warm-up to the last
+    reply."""
+    from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.serve import SynthesisService
+    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+
+    args = cli.build_parser().parse_args(
+        ["serve", "--model-dir", FLAGSHIP, "--data-parallel", "--max-batch",
+         str(MAX_BATCH)])
+    # each request alone, through a service of its own
+    services = [cli.make_service(args)[0],
+                SynthesisService(config, generator, stage=stage,
+                                 max_batch=MAX_BATCH)]
+    try:
+        alone = []
+        for i, pitches in enumerate(SERVE_REQUESTS):
+            a, b = (svc.synthesize(pitches, seed=i) for svc in services)
+            alone.append(float(abs(a - b).max()))
+    finally:
+        for svc in services:
+            svc.close()
+    if max(alone) != 0.0:
+        raise AssertionError(f"data-parallel replies alone differ from the "
+                             f"in-process service's: {alone}")
+    synthesis_spectrum.launches = 0
+    service, message = cli.make_service(args)
+    if service is None:
+        raise AssertionError(message)
+    health, replies = serve_requests(service)
+    launches = synthesis_spectrum.launches
+    if launches == 0:
+        raise AssertionError("serve --data-parallel never launched K1")
+    sample = make_seeded_sampler(config, generator, stage)
+    served = []
+    for i, (pitches, wav) in enumerate(zip(SERVE_REQUESTS, replies)):
+        seeds = [(i * 1000003 + j) & 0x7FFFFFFF for j in range(len(pitches))]
+        want = service.wav_bytes(sample(seeds, pitches).cpu().numpy())
+        served.append(_rel(_pcm(want), _pcm(wav)))
+    if not max(served) <= 0.15:
+        raise AssertionError(f"served waves vs the in-process sampler: "
+                             f"{served} (bound 0.15)")
+    return {"message": message, "mesh_devices": health["mesh_devices"],
+            "batch_ladder": health["batch_ladder"],
+            "determinism": health["determinism"],
+            "device_batches": health["device_batches"],
+            "alone_max_abs_diff": alone, "served_rel_l2": served,
+            "launches": launches}
+
+
+def data_parallel(card, loop_ref, config, generator, stage):
+    """Phase 14; see the docstring."""
+    import torch
+    import torch.distributed as dist
+
+    from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.parallel import sharding
+
+    mid = 415000 + LOOP_CADENCE
+    want, repeat = loop_ref["params_mid"], loop_ref["a_vs_repeat_mid"]
+
+    def distance(run):
+        got = loop_params(run, mid)
+        return {k: float((got[k].cpu() - want[k]).abs().max()) for k in want}
+
+    out = {"card": card, "steps": LOOP_CADENCE,
+           "a_vs_repeat_max_abs": repeat, "distance_max_abs": {}}
+    # `cli train --data-parallel` in a process of its own: it starts one
+    # worker per visible card, which joins an NCCL group
+    run = loop_dir("dp_replicate")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = ROOT + os.pathsep + env.get("PYTHONPATH", "")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "gansynth_tpu_torch.cli",
+         *loop_argv(run, LOOP_CADENCE), "--data-parallel"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    out["process_seconds"] = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli train --data-parallel: exit "
+                             f"{proc.returncode}\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    out["distance_max_abs"]["replicate"] = distance(run)
+    shutil.rmtree(run)
+
+    # the other two in this process, in an NCCL group of one rank set up
+    # here (cli train joins it), with the kernels' launches counted
+    sharding.initialize_multihost(torch.device("cuda"),
+                                  f"tcp://127.0.0.1:{cli._free_port()}", 0, 1)
+    out["launches"] = {}
+    try:
+        mesh = sharding.make_mesh()
+        out["backend"] = dist.get_backend()
+        for name, flags in DP_RUNS.items():
+            if name == "replicate":
+                continue
+            run = loop_dir(f"dp_{name}")
+            _zero_kernel_counts()
+            if cli.main([*loop_argv(run, LOOP_CADENCE), "--data-parallel",
+                         *flags]) != 0:
+                raise AssertionError(f"cli train --data-parallel {flags}")
+            torch.cuda.synchronize()
+            out["launches"][name] = _kernel_counts()
+            bad = [k for k in ("conv3x3_forward", "conv3x3_input_grad",
+                               "dblock") if out["launches"][name][k] == 0]
+            if bad:
+                raise AssertionError(f"the DP {name} run never launched "
+                                     f"{bad}")
+            out["distance_max_abs"][name] = distance(run)
+            shutil.rmtree(run)
+        out["timing"] = dp_step_timing(torch.device("cuda"), mesh)
+    finally:
+        dist.destroy_process_group()
+    shutil.rmtree(LOOP_DIR, ignore_errors=True)
+    for name, dists in out["distance_max_abs"].items():
+        for k, v in dists.items():
+            if not v <= 2 * repeat[k]:
+                raise AssertionError(
+                    f"DP {name} run vs phase 10's run A at {mid}: "
+                    f"{dists} (bar twice the repeat's {repeat})")
+    out["remat"] = remat_step(torch.device("cuda"))
+    out["serve"] = serve_data_parallel(config, generator, stage)
+    print(json.dumps({"data_parallel": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1619,7 +1915,7 @@ def main() -> int:
 
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    loop = train_loop(card, train["mean_step_ms"])
+    loop, loop_ref = train_loop(card, train["mean_step_ms"])
     phase("train loop", t, f"cli train --device-cache, {loop['steps']} "
           f"steps at stage 6, unroll {loop['unroll']}: "
           f"{[round(v, 1) for v in loop['ms_per_step']]} ms/step by "
@@ -1675,6 +1971,36 @@ def main() -> int:
           f"pallas export K2 launches {exp['pallas_launches']['conv3x3']}, "
           f"rel {exp['pallas_rel_l2']:.3g} ({card})")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    generator, _, stage = load_ema_generator(
+        os.path.join(FLAGSHIP, "ema.npz"), config.model, device)
+    dp = data_parallel(card, loop_ref, config, generator, stage)
+    del generator
+    tm = dp["timing"]
+    rm = dp["remat"]
+    phase("data parallel", t, f"cli train --data-parallel "
+          f"{LOOP_CADENCE} steps ({dp['backend']}, 1 rank): distance to "
+          f"phase 10's run A " + ", ".join(
+              f"{k} {v}" for k, v in dp["distance_max_abs"].items())
+          + f" (bar 2x {dp['a_vs_repeat_max_abs']}); launches "
+          f"{dp['launches']}; step ms median "
+          f"{tm['median_step_ms']['group']:.1f} with the group, "
+          f"{tm['median_step_ms']['no_group']:.1f} without; all-reduce "
+          f"{tm['all_reduce_ms_per_step']:.3f} ms a step; peak "
+          f"{tm['peak_mem_gib_group']:.2f} GiB; remat f32 peak "
+          f"{rm['remat']['peak_mem_gib']:.2f} GiB vs "
+          f"{rm['plain']['peak_mem_gib']:.2f}, "
+          f"{rm['remat']['ms_per_step']:.1f} vs "
+          f"{rm['plain']['ms_per_step']:.1f} ms/step, worst metric "
+          f"{rm['worst_scaled_err']:.3e}; serve --data-parallel "
+          f"{dp['serve']['mesh_devices']} card(s), K1 launches "
+          f"{dp['serve']['launches']}, served vs in-process worst "
+          f"{max(dp['serve']['served_rel_l2']):.3g} ({card})")
+
+    def dp_count(name):
+        return sum(launches[name] for launches in dp["launches"].values())
+
     conv_launches = (train["launches"]["conv3x3_forward"]
                      + train["launches"]["conv3x3_input_grad"])
     loop_launches = loop["launches"]
@@ -1687,6 +2013,7 @@ def main() -> int:
         "loop_launches": loop_launches["synthesis_spectrum"],
         "offline_launches": offline["launches_total"]["synthesis_spectrum"],
         "export_launches": exp["launches"],
+        "dp_launches": dp["serve"]["launches"],
         "max_abs_err": k1["max_abs_err"],
         **{k: k1[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
                               "bound_ms", "bound_by", "fraction_of_bound",
@@ -1715,6 +2042,12 @@ def main() -> int:
                           for row in k2["sample_shapes"]],
         "offline_launches": offline["launches_total"]["conv3x3"],
         "export_launches": exp["pallas_launches"]["conv3x3"],
+        "dp_launches": dp_count("conv3x3_forward")
+        + dp_count("conv3x3_input_grad"),
+        "remat_launches": rm["remat"]["launches"]["conv3x3_forward"]
+        + rm["remat"]["launches"]["conv3x3_input_grad"],
+        "remat_recompute_launches":
+            rm["remat"]["launches"]["conv3x3_recompute"],
         "measured_only": k2["measured_only"],
         "resources": resources["conv3x3"],
     }, {
@@ -1724,6 +2057,10 @@ def main() -> int:
         "replaces": "gansynth_tpu/kernels/pallas_dblock.py:198",
         "launches": train["launches"]["dblock"],
         "loop_launches": loop_launches["dblock"],
+        "dp_launches": dp_count("dblock"),
+        "remat_launches": rm["remat"]["launches"]["dblock"],
+        "remat_recompute_launches":
+            rm["remat"]["launches"]["dblock_recompute"],
         "max_abs_err": k3["max_abs_err"],
         "max_abs_err_f32": k3["max_abs_err_f32"],
         "shape": k3["shape"],

@@ -18,8 +18,12 @@ its module names so each counterpart is easy to find:
                 artifact (``torch.export``).
 - ``train``   — the WGAN-GP step and superstep, the schedule, the loop
                 and the supervisor.
-- ``data``    — synthetic notes, the TFRecord fixture writer and the
-                native TFRecord reader (no TensorFlow).
+- ``data``    — synthetic notes, the TFRecord fixture writer, the
+                native TFRecord reader (no TensorFlow) and a data-parallel
+                rank's infeed.
+- ``parallel`` — data parallelism: one process per card in a
+                ``torch.distributed`` group, the batch split over the
+                ranks, the step's collectives.
 - ``serve``   — the coalescing HTTP synthesis service.
 - ``cli``     — ``train``, ``stop``, ``supervise``, ``export-ema``,
                 ``export-model``, ``fixtures``, ``serve``, ``generate``,

@@ -27,19 +27,29 @@ Counterpart of ``gansynth_tpu/cli.py``. Ported subcommands:
 
 ``serve``, ``generate``, ``interpolate``, ``evaluate`` and
 ``export-model`` restore through one function, :func:`_restore_sampler`:
-the newest full checkpoint under ``checkpoints/`` when there is one, else
-``ema.npz``, with the run's ``train_config.json`` under the model flags and
-``--config``. ``serve --from-exported`` and ``interpolate
+the newest full checkpoint under ``checkpoints/`` when it is the port's,
+else ``ema.npz`` (the reference's orbax checkpoints are not read), with
+the run's ``train_config.json`` under the model flags and ``--config``. ``serve --from-exported`` and ``interpolate
 --from-exported`` take a ``.gsx`` artifact instead, whose header carries
 the config.
 
 The flags and defaults are the reference's, apart from what the port
 refuses with an error (exit 2): ``--ingest tf`` / ``--ingest tfdata``
 (there is no TensorFlow beside the card; the native reader is the
-default), ``--data-parallel``, ``--multihost`` and ``--mbstd
-per-replica`` (data parallelism is not ported), and ``export-model
---platforms`` other than ``cpu`` and ``cuda``. Commands that run a model
-take ``--device`` (default ``cuda``; ``cpu`` to run without a card).
+default) and ``export-model --platforms`` other than ``cpu`` and
+``cuda``. Commands that run a model take ``--device`` (default ``cuda``;
+``cpu`` to run without a card).
+
+Data parallelism is one process per card in a ``torch.distributed`` group
+(``parallel/sharding.py``). ``train --data-parallel`` starts one worker
+per visible card on a free local port, or joins the group when a launcher
+(``torchrun``: ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``) started it; every worker reads the global batch stream
+and keeps its rows. ``train --multihost`` joins a launcher's group and
+decodes only its slice of each global batch (``num_shards`` = world
+size). ``--mbstd per-replica`` takes the minibatch statistic per rank
+(``mbstd_replicas`` = world size). ``serve --data-parallel`` holds one
+EMA replica per visible card and splits each batch over them.
 """
 
 from __future__ import annotations
@@ -56,7 +66,6 @@ import numpy as np
 
 from gansynth_tpu_torch.utils.config import Config, ModelConfig, TrainConfig
 
-_DATA_PARALLEL = "data parallelism is not ported yet (ROADMAP.md queue 1 item 4)"
 _NO_TENSORFLOW = ("needs TensorFlow, which the port does not use; the port "
                   "reads TFRecords with its native reader (--ingest native, "
                   "the default)")
@@ -102,11 +111,19 @@ def _build_config(args) -> Config:
         log_every=args.log_every,
         sample_every=getattr(args, "sample_every", 0),
     )
+    mbstd_replicas = 1
+    if getattr(args, "mbstd", "global") == "per-replica":
+        import torch
+
+        from gansynth_tpu_torch.parallel.sharding import world_size
+
+        mbstd_replicas = max(1, world_size(torch.device(args.device)))
     model = ModelConfig(
         latent_dim=args.latent_dim,
         fmap_base=args.fmap_base,
         fmap_max=args.fmap_max,
         compute_dtype=args.compute_dtype,
+        mbstd_replicas=mbstd_replicas,
     )
     config = Config(model=model, train=train)
     if args.config:
@@ -174,63 +191,126 @@ def _add_device_flag(p: argparse.ArgumentParser) -> None:
                    "a card)")
 
 
-def _refused(args) -> Optional[str]:
-    """Why ``train`` refuses these flags, or None."""
-    if args.ingest != "native":
-        return f"--ingest {args.ingest} {_NO_TENSORFLOW}"
-    if args.data_parallel:
-        return f"--data-parallel: {_DATA_PARALLEL}"
-    if args.multihost:
-        return f"--multihost: {_DATA_PARALLEL}"
-    if args.mbstd != "global":
-        return f"--mbstd {args.mbstd}: {_DATA_PARALLEL}"
-    if args.device_cache_layout != "replicate":
-        return f"--device-cache-layout {args.device_cache_layout}: " \
-            f"{_DATA_PARALLEL}"
-    return None
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dp_worker(index: int, argv, port: int, world: int) -> None:
+    """One ``train --data-parallel`` worker: rank ``index`` of ``world``
+    on card ``index``, in the group at ``127.0.0.1:port``."""
+    os.environ.update(RANK=str(index), LOCAL_RANK=str(index),
+                      WORLD_SIZE=str(world), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    rc = main(argv)
+    if rc:
+        raise SystemExit(rc)
+
+
+def _spawn_workers(args, world: int) -> int:
+    """``train --data-parallel`` without a launcher: one spawned worker a
+    card, each running this command under a launcher's environment."""
+    import torch.multiprocessing as mp
+
+    try:
+        mp.start_processes(_dp_worker, args=(args.argv, _free_port(), world),
+                           nprocs=world, start_method="spawn")
+    except mp.ProcessExitedException as e:
+        print(f"error: data-parallel worker {e.error_index} exited with "
+              f"{e.exit_code}", file=sys.stderr)
+        return e.exit_code if e.exit_code and e.exit_code > 0 else 1
+    return 0
 
 
 def cmd_train(args) -> int:
+    import torch
+    import torch.distributed as dist
+
     from gansynth_tpu_torch.data.fixtures import write_synthetic_tfrecords
     from gansynth_tpu_torch.data.native_tfrecord import make_native_iterator
+    from gansynth_tpu_torch.parallel import sharding
     from gansynth_tpu_torch.train.loop import train
+    from gansynth_tpu_torch.utils.checkpoint import Checkpointer, refuse_orbax
     from gansynth_tpu_torch.utils.device import resolve_device, set_precision
 
-    refused = _refused(args)
-    if refused:
-        print(f"error: {refused}", file=sys.stderr)
+    if args.ingest != "native":
+        print(f"error: --ingest {args.ingest} {_NO_TENSORFLOW}",
+              file=sys.stderr)
         return 2
     config = _build_config(args)
     device = resolve_device(args.device)
+    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
+    try:
+        refuse_orbax(ckpt_dir)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
+    mesh, own_group = None, False
+    if args.data_parallel or args.multihost:
+        world = sharding.world_size(device)
+        for stage in range(config.model.num_stages):
+            batch = config.train.batch_for_stage(stage)
+            if batch % max(world, 1):
+                print(f"error: stage {stage} global batch {batch} must "
+                      f"divide the world size {world}", file=sys.stderr)
+                return 2
+        if not (dist.is_initialized() or sharding.launched()):
+            if args.multihost:
+                print("error: --multihost joins the process group of a "
+                      "launcher (torchrun sets RANK, WORLD_SIZE, "
+                      "MASTER_ADDR and MASTER_PORT)", file=sys.stderr)
+                return 2
+            if device.type != "cuda":
+                print("error: --data-parallel starts one worker a card; on "
+                      "the CPU run it under a launcher (torchrun "
+                      "--nproc-per-node N)", file=sys.stderr)
+                return 2
+            return _spawn_workers(args, world)
+        own_group = not dist.is_initialized()
+        sharding.initialize_multihost(device)
+        mesh = sharding.make_mesh()
+        device = mesh.device
+    lead = mesh is None or mesh.rank == 0
     set_precision()
     if args.debug_nans:
-        import torch
-
         torch.autograd.set_detect_anomaly(True)
     # The effective config rides with the run: serve and export-ema read it.
     os.makedirs(args.model_dir, exist_ok=True)
-    with open(os.path.join(args.model_dir, "train_config.json"), "w") as f:
-        json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+    if lead:
+        with open(os.path.join(args.model_dir, "train_config.json"),
+                  "w") as f:
+            json.dump(dataclasses.asdict(config), f, indent=2,
+                      sort_keys=True)
     files = list(args.data or [])
     if args.synthetic and not files:
         # Per-run fixture file: concurrent runs never rewrite it mid-read,
-        # and a resume reads the same data.
+        # and a resume reads the same data. Rank 0 writes it; a rank that
+        # does not see it then (another host's disk) writes its own.
         path = os.path.join(args.model_dir, "fixtures.tfrecord")
-        if not os.path.exists(path):
+        if lead and not os.path.exists(path):
             write_synthetic_tfrecords(path, num_examples=256,
                                       seed=config.train.seed)
+        if mesh is not None:
+            dist.barrier()
+            if not os.path.exists(path):
+                write_synthetic_tfrecords(path, num_examples=256,
+                                          seed=config.train.seed)
         files = [path]
     if not files:
         print("error: pass --data <tfrecord...> or --synthetic",
               file=sys.stderr)
         return 2
+    # --multihost: each process decodes its slice of every global batch.
+    shards, shard = ((mesh.world, mesh.rank) if args.multihost
+                     else (1, 0))
 
     # Resume position of the data stream (position == batch count == step).
     resume_step = 0
-    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
     if os.path.isdir(ckpt_dir):
-        steps = [int(p) for p in os.listdir(ckpt_dir) if p.isdigit()]
-        resume_step = max(steps, default=0)
+        resume_step = Checkpointer(ckpt_dir).latest_step() or 0
 
     acoustic = not args.synthetic
     device_dataset, data, data_factory = None, None, None
@@ -243,34 +323,49 @@ def cmd_train(args) -> int:
             waves.append(w)
             pitches.append(p)
         device_dataset = (np.concatenate(waves), np.concatenate(pitches))
-        print(f"device cache: {device_dataset[0].shape[0]} examples "
-              f"({device_dataset[0].nbytes / 2**20:.0f} MiB) on {device}",
-              flush=True)
+        if lead:
+            print(f"device cache: {device_dataset[0].shape[0]} examples "
+                  f"({device_dataset[0].nbytes / 2**20:.0f} MiB) on "
+                  f"{device}", flush=True)
     elif config.train.stage_batch_sizes is not None:
         def data_factory(stage, global_batch, skip):
             return make_native_iterator(
                 files, config, acoustic_only=acoustic,
-                families=args.instrument_families, batch_size=global_batch,
-                seed=config.train.seed + 7919 * stage, skip_batches=skip)
+                families=args.instrument_families,
+                batch_size=global_batch // shards,
+                seed=config.train.seed + 7919 * stage, num_shards=shards,
+                shard_index=shard, skip_batches=skip)
     else:
         data = make_native_iterator(
             files, config, acoustic_only=acoustic,
             families=args.instrument_families,
-            batch_size=config.train.batch_size, seed=config.train.seed,
+            batch_size=config.train.batch_size // shards,
+            seed=config.train.seed, num_shards=shards, shard_index=shard,
             skip_batches=resume_step)
-    state = train(config, data, num_steps=args.num_steps,
-                  workdir=args.model_dir, device_dataset=device_dataset,
-                  data_position=resume_step, data_factory=data_factory,
-                  device=device)
-    print(f"trained to step {int(state.step)}; checkpoints in "
-          f"{args.model_dir}/checkpoints", flush=True)
+    try:
+        state = train(config, data, num_steps=args.num_steps,
+                      workdir=args.model_dir, mesh=mesh,
+                      device_dataset=device_dataset,
+                      data_position=resume_step, data_factory=data_factory,
+                      device=device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+    if lead:
+        print(f"trained to step {int(state.step)}; checkpoints in "
+              f"{args.model_dir}/checkpoints", flush=True)
     return 0
 
 
-def cmd_serve(args) -> int:
-    from gansynth_tpu_torch.serve import SynthesisService, serve_forever
+def make_service(args):
+    """``serve``'s service from its flags: ``(service, message)``, or
+    ``(None, error)`` for flags it refuses (exit 2)."""
+    from gansynth_tpu_torch.serve import SynthesisService
 
     if args.from_exported:
+        if args.data_parallel:
+            return None, ("--from-exported is a single lowered program; it "
+                          "does not compose with --data-parallel")
         # The artifact's header carries the config: no run directory,
         # checkpoint or model flags.
         from gansynth_tpu_torch.synth.export import load_sampler_artifact
@@ -286,23 +381,35 @@ def cmd_serve(args) -> int:
                 request_timeout_s=args.request_timeout,
             )
         except (OSError, ValueError) as e:
-            print(f"cannot serve {args.from_exported}: {e}", file=sys.stderr)
-            return 2
-        print(f"artifact from step {loaded.step} (stage {loaded.stage}) on "
-              f"{loaded.device}; warmup done", flush=True)
-        serve_forever(service, args.host, args.port)
-        return 0
+            return None, f"cannot serve {args.from_exported}: {e}"
+        return service, (f"artifact from step {loaded.step} (stage "
+                         f"{loaded.stage}) on {loaded.device}; warmup done")
     if not args.model_dir:
-        print("serve needs --model-dir (or --from-exported ART.gsx)",
-              file=sys.stderr)
-        return 2
+        return None, "serve needs --model-dir (or --from-exported ART.gsx)"
     sampler, step, stage, config = _restore_sampler(args, _build_config(args))
+    devices = None
+    if args.data_parallel:
+        from gansynth_tpu_torch.parallel.sharding import devices_for
+
+        devices = devices_for(next(sampler.generator.parameters()).device)
     service = SynthesisService(
         config, sampler.generator, stage=stage, max_batch=args.max_batch,
         max_queue_notes=args.max_queue_notes,
-        request_timeout_s=args.request_timeout,
+        request_timeout_s=args.request_timeout, devices=devices,
     )
-    print(f"model at step {step}; warmup done", flush=True)
+    where = "" if devices is None else \
+        f" on {len(devices)} device(s), ladder {service.batch_ladder}"
+    return service, f"model at step {step}{where}; warmup done"
+
+
+def cmd_serve(args) -> int:
+    from gansynth_tpu_torch.serve import serve_forever
+
+    service, message = make_service(args)
+    if service is None:
+        print(message, file=sys.stderr)
+        return 2
+    print(message, flush=True)
     serve_forever(service, args.host, args.port)
     return 0
 
@@ -343,9 +450,12 @@ def _restore_sampler(args, config: Config):
     ``_restore_sampler``).
 
     ``config`` is :func:`_restore_config`'s, which callers use from here
-    on. The weights are the newest full checkpoint's EMA when the run has
-    ``checkpoints/``, else ``ema.npz``'s (an archived run keeps only the
-    export, which may be stored in float16). ``--stage auto`` takes the
+    on. The weights are the newest full checkpoint's EMA when that
+    checkpoint is the port's (``checkpoints/<step>/state.pt``), else
+    ``ema.npz``'s: an archived run keeps only the export, which may be
+    stored in float16, and a run the reference trained has orbax
+    checkpoints, which the port does not read, beside the ``ema.npz`` its
+    loop wrote with each of them. ``--stage auto`` takes the
     stage recorded in ``ema.npz`` when the weights came from there, else
     the schedule's stage at ``step - 1``: a run stopped mid-ladder samples
     at the stage it trained (below the final stage the image is
@@ -358,6 +468,7 @@ def _restore_sampler(args, config: Config):
     from gansynth_tpu_torch.utils.checkpoint import (
         Checkpointer,
         load_ema_generator,
+        orbax_steps,
     )
     from gansynth_tpu_torch.utils.device import resolve_device, set_precision
 
@@ -367,7 +478,8 @@ def _restore_sampler(args, config: Config):
     npz = os.path.join(args.model_dir, "ema.npz")
     ckpt_dir = os.path.join(args.model_dir, "checkpoints")
     npz_stage = None
-    if os.path.isdir(ckpt_dir):
+    ours = Checkpointer(ckpt_dir).steps() if os.path.isdir(ckpt_dir) else []
+    if ours and ours[-1] > max(orbax_steps(ckpt_dir), default=-1):
         state, step = Checkpointer(ckpt_dir).restore(
             create_train_state(config, device=device))
         generator = state.ema
@@ -377,7 +489,8 @@ def _restore_sampler(args, config: Config):
                                                         device)
     else:
         raise FileNotFoundError(
-            f"{args.model_dir} has neither checkpoints/ nor ema.npz")
+            f"{args.model_dir} has neither a checkpoint of the port "
+            "(checkpoints/<step>/state.pt) nor ema.npz")
     if args.stage != "auto":
         stage = int(args.stage)
     elif npz_stage is not None:
@@ -609,12 +722,21 @@ def cmd_export_ema(args) -> int:
     compact ``ema.npz`` in the reference's format."""
     from gansynth_tpu_torch.train.schedule import schedule_from_config
     from gansynth_tpu_torch.train.state import create_train_state
-    from gansynth_tpu_torch.utils.checkpoint import Checkpointer, save_ema_npz
+    from gansynth_tpu_torch.utils.checkpoint import (
+        Checkpointer,
+        refuse_orbax,
+        save_ema_npz,
+    )
 
     config = _restore_config(args, _build_config(args))
+    ckpt_dir = os.path.join(args.model_dir, "checkpoints")
+    try:
+        refuse_orbax(ckpt_dir)
+    except ValueError as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
     template = create_train_state(config, device=args.device)
-    ckpt = Checkpointer(os.path.join(args.model_dir, "checkpoints"))
-    state, step = ckpt.restore(template)
+    state, step = Checkpointer(ckpt_dir).restore(template)
     stage, _ = schedule_from_config(config).stage_and_alpha(max(step - 1, 0))
     out = args.output or os.path.join(args.model_dir, "ema.npz")
     dtype = None if args.dtype == "float32" else args.dtype
@@ -746,9 +868,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="train on generated fixtures (smoke testing)")
     p.add_argument("--num-steps", type=int, default=None)
     p.add_argument("--data-parallel", action="store_true",
-                   help="refused: data parallelism is not ported yet")
+                   help="one process a card in a torch.distributed group "
+                   "(NCCL), the global batch split over the ranks: starts "
+                   "a worker per visible card, or joins a launcher's group")
     p.add_argument("--multihost", action="store_true",
-                   help="refused: data parallelism is not ported yet")
+                   help="join the group of a launcher (torchrun) on every "
+                   "host; each process decodes its slice of the data")
     p.add_argument("--sample-every", type=int, default=0,
                    help="dump EMA-generator audio samples every N steps")
     p.add_argument("--ingest", default="native", choices=["tf", "native"],
@@ -760,8 +885,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "(0..10)")
     p.add_argument("--mbstd", default="global",
                    choices=["global", "per-replica"],
-                   help="minibatch-stddev batch semantics (per-replica is "
-                   "refused: data parallelism is not ported yet)")
+                   help="minibatch-stddev batch semantics under data "
+                   "parallelism: global-batch statistics (an all-gather "
+                   "over the ranks) or each rank's own (no collective)")
     p.add_argument("--device-cache", action="store_true",
                    help="hold the whole decoded dataset on the device and "
                    "gather each step's batch there (stateless, resume-exact "
@@ -769,7 +895,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device-cache-layout", default="replicate",
                    choices=["replicate", "shard"],
                    help="placement of the --device-cache dataset across "
-                   "devices ('shard' is refused: one device only)")
+                   "ranks: a full copy each, or each rank N/W examples "
+                   "(the batch gathered from their owners every step)")
     _add_common_train_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_train)
@@ -849,7 +976,12 @@ def build_parser() -> argparse.ArgumentParser:
                    "instead of a run: no checkpoint, no model flags")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8400)
-    p.add_argument("--max-batch", type=int, default=16)
+    p.add_argument("--max-batch", type=int, default=16,
+                   help="largest batch; with --data-parallel rounded up to "
+                   "a multiple of the devices")
+    p.add_argument("--data-parallel", action="store_true",
+                   help="one EMA replica per visible card, each batch split "
+                   "over them (every rung a multiple of the card count)")
     p.add_argument("--max-queue-notes", type=int, default=256,
                    help="queued notes beyond this get HTTP 429")
     p.add_argument("--request-timeout", type=float, default=30.0,
@@ -968,7 +1100,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
+    args.argv = argv   # what a spawned data-parallel worker runs again
     return args.fn(args)
 
 

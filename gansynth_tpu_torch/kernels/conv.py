@@ -27,6 +27,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from gansynth_tpu_torch.kernels import is_recomputing
 from gansynth_tpu_torch.kernels._build import load_library
 
 _SYMBOLS = {torch.float32: "conv3x3_nhwc_f32",
@@ -83,7 +84,7 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
                  height, width, c_in, c_out, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: cudaError {err}")
-    conv3x3_same.launches[role] += 1
+    conv3x3_same.launches["recompute" if is_recomputing() else role] += 1
     return y
 
 
@@ -141,7 +142,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     ``x`` [B, H, W, C_in] contiguous, ``weight`` [C_out, C_in, 3, 3] in x's
     type. Launches the CUDA kernel for a CUDA tensor (counted in
     ``conv3x3_same.launches["forward"]``; the launches of its backward
-    passes in ``["input_grad"]``); takes :func:`conv3x3_plain` for a CPU
+    passes in ``["input_grad"]``, and those of a rematerialised forward,
+    ``ModelConfig.remat``, in ``["recompute"]``); takes :func:`conv3x3_plain` for a CPU
     tensor. Differentiable to any order.
     """
     if x.ndim != 4 or tuple(weight.shape[1:]) != (x.shape[-1], 3, 3):
@@ -150,4 +152,4 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     return _Conv3x3.apply(x, weight, "forward")
 
 
-conv3x3_same.launches = {"forward": 0, "input_grad": 0}
+conv3x3_same.launches = {"forward": 0, "input_grad": 0, "recompute": 0}

@@ -26,6 +26,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from gansynth_tpu_torch.kernels import is_recomputing
 from gansynth_tpu_torch.kernels._build import load_library
 from gansynth_tpu_torch.utils.device import slope_in
 
@@ -102,7 +103,10 @@ def _launch(x, k0, b0, k1, b1, slope: float) -> torch.Tensor:
                  height, width, c1, float(slope), stream)
     if err != 0:
         raise RuntimeError(f"dblock kernel launch failed: cudaError {err}")
-    fused_dblock.launches += 1
+    if is_recomputing():
+        fused_dblock.recompute_launches += 1
+    else:
+        fused_dblock.launches += 1
     return y
 
 
@@ -163,7 +167,9 @@ def fused_dblock(x, k0, b0, k1, b1, slope: float = 0.2) -> torch.Tensor:
     3], ``k1`` [C1, 64, 3, 3] OIHW with the eq-LR scale folded in, ``b0``,
     ``b1`` (any float type; cast to x's type, as the chain does). Returns
     [B, H/2, W/2, C1] in x's type. Launches the CUDA kernel for a CUDA
-    tensor (counted in ``fused_dblock.launches``); takes
+    tensor (counted in ``fused_dblock.launches``, or in
+    ``fused_dblock.recompute_launches`` in a rematerialised forward,
+    ``ModelConfig.remat``); takes
     :func:`dblock_plain` for a CPU tensor. Differentiable to any order.
     """
     if (x.ndim != 4 or x.shape[-1] != C_IN or tuple(k0.shape) !=
@@ -175,3 +181,4 @@ def fused_dblock(x, k0, b0, k1, b1, slope: float = 0.2) -> torch.Tensor:
 
 
 fused_dblock.launches = 0
+fused_dblock.recompute_launches = 0

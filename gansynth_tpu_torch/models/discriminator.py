@@ -13,6 +13,10 @@ depend on the stage; the reference's zero-input calls on inactive blocks
 Module names mirror the reference's tree: ``from_rgb[i]`` (``from_rgb_i``),
 ``blocks["i"].conv0`` / ``conv1`` (``block_i``), ``final_conv``,
 ``final_dense``, ``critic_head``, ``pitch_head``.
+
+With ``ModelConfig.remat`` each trunk block runs under
+``models.layers.remat_call`` while gradients are taken, as the reference
+wraps it in ``nn.remat`` (``discriminator.py:139``).
 """
 
 from __future__ import annotations
@@ -27,12 +31,12 @@ from gansynth_tpu_torch.kernels.dblock import dblock_eligible, fused_dblock
 from gansynth_tpu_torch.models.layers import (
     EqualizedConv,
     EqualizedDense,
-    check_no_remat,
     downsample_avg,
     he_scale,
     leaky_relu,
     lerp,
     minibatch_stddev,
+    remat_call,
 )
 from gansynth_tpu_torch.utils.config import ModelConfig
 
@@ -85,7 +89,6 @@ class Discriminator(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_no_remat(config)
         self.config = cfg = config
         ch = cfg.stage_channels
         cdt = cfg.compute_dtype
@@ -111,8 +114,11 @@ class Discriminator(nn.Module):
         self.pitch_head = EqualizedDense(ch(0), cfg.num_pitches, gain=1.0,
                                          generator=generator)
 
-    def forward(self, image: torch.Tensor, stage: int,
-                alpha=1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, image: torch.Tensor, stage: int, alpha=1.0,
+                mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``mesh``: ``image`` is this rank's rows of a batch sharded over
+        a data-parallel mesh, and the minibatch-stddev statistic is the
+        global batch's (``layers.minibatch_stddev``)."""
         cfg = self.config
         if not 0 <= stage < cfg.num_stages:
             raise ValueError(f"stage must be in [0, {cfg.num_stages}), got {stage}")
@@ -122,14 +128,16 @@ class Discriminator(nn.Module):
                              f"{tuple(image.shape[1:3])}")
         slope = cfg.leaky_relu_slope
         x = leaky_relu(self.from_rgb[stage](image), slope)
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(stage, 0, -1):
-            x = self.blocks[str(i)](x)
+            block = self.blocks[str(i)]
+            x = remat_call(block, x) if remat else block(x)
             if i == stage:
                 skip = leaky_relu(
                     self.from_rgb[stage - 1](downsample_avg(image, 2)), slope)
                 x = lerp(skip, x, alpha)
         x = minibatch_stddev(x, cfg.mbstd_group_size, cfg.mbstd_eps,
-                             cfg.mbstd_replicas)
+                             cfg.mbstd_replicas, mesh)
         x = leaky_relu(self.final_conv(x), slope)
         x = leaky_relu(self.final_dense(x.reshape(x.shape[0], -1)), slope)
         critic = self.critic_head(x)[:, 0]

@@ -9,6 +9,11 @@ the upsampled previous one with ``alpha``. The output is the 2-channel
 Module names mirror the reference's parameter tree: ``latent_dense``,
 ``blocks[i].conv0`` / ``conv1`` (``block_i``), ``to_rgb[i]``
 (``to_rgb_i``).
+
+With ``ModelConfig.remat`` each trunk block runs under
+``models.layers.remat_call`` while gradients are taken, as the reference
+wraps it in ``nn.remat`` (``generator.py:96``): the same values, fewer
+activations kept.
 """
 
 from __future__ import annotations
@@ -22,10 +27,10 @@ from gansynth_tpu_torch.models.layers import (
     EqualizedConv,
     EqualizedDense,
     EqualizedUpConv,
-    check_no_remat,
     leaky_relu,
     lerp,
     pixel_norm,
+    remat_call,
     upsample_nearest,
 )
 from gansynth_tpu_torch.utils.config import ModelConfig
@@ -70,7 +75,6 @@ class Generator(nn.Module):
     def __init__(self, config: ModelConfig = ModelConfig(),
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_no_remat(config)
         self.config = cfg = config
         ch = cfg.stage_channels
         cdt = cfg.compute_dtype
@@ -104,8 +108,10 @@ class Generator(nn.Module):
         )
         x = pixel_norm(leaky_relu(x, cfg.leaky_relu_slope), cfg.pixelnorm_eps)
         prev = None
+        remat = cfg.remat and torch.is_grad_enabled()
         for i in range(stage + 1):
-            prev, x = x, self.blocks[i](x)
+            block = self.blocks[i]
+            prev, x = x, remat_call(block, x) if remat else block(x)
         out = self.to_rgb[stage](x)
         if stage > 0:
             prev_rgb = self.to_rgb[stage - 1](prev)

@@ -20,19 +20,32 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from gansynth_tpu_torch.kernels.conv import conv3x3_eligible, conv3x3_same
 from gansynth_tpu_torch.utils.device import dtype_of, slope_in
 
 
-def check_no_remat(config) -> None:
-    """Raises on ``ModelConfig.remat``: the reference rematerialises its
-    blocks (``nn.remat``) when it is set, and the port does not yet, so it
-    refuses the option rather than ignore it."""
-    if config.remat:
-        raise ValueError("ModelConfig.remat=True is not supported by the "
-                         "PyTorch port yet (block rematerialisation); "
-                         "set remat=False")
+def remat_call(module: nn.Module, *args) -> torch.Tensor:
+    """``module(*args)`` with its activations rematerialised, the
+    reference's ``nn.remat`` (``ModelConfig.remat``): non-reentrant
+    ``torch.utils.checkpoint`` keeps only the inputs and runs the module
+    again when the backward pass needs its activations, which also holds
+    through the gradient penalty's double backward. The kernels' launches
+    during that second run are counted apart
+    (``kernels.recomputing``)."""
+    from gansynth_tpu_torch.kernels import recomputing
+
+    calls = []
+
+    def run(*a):
+        calls.append(None)
+        if len(calls) == 1:
+            return module(*a)
+        with recomputing():
+            return module(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def he_scale(fan_in: int, gain: float) -> float:
@@ -171,26 +184,45 @@ def _mbstd_stat(x: torch.Tensor, group_size: int, eps: float) -> torch.Tensor:
     return stat.repeat(g, h, w, 1)
 
 
+def _mbstd_stats(x: torch.Tensor, group_size: int, eps: float,
+                 num_replicas: int) -> torch.Tensor:
+    b = x.shape[0]
+    if num_replicas > b:
+        num_replicas = 1
+    if num_replicas <= 1:
+        return _mbstd_stat(x, group_size, eps)
+    if b % num_replicas:
+        raise ValueError(f"batch {b} must divide num_replicas {num_replicas}")
+    return torch.cat([_mbstd_stat(c, group_size, eps)
+                      for c in x.chunk(num_replicas)])
+
+
 def minibatch_stddev(x: torch.Tensor, group_size: int = 4, eps: float = 1e-8,
-                     num_replicas: int = 1) -> torch.Tensor:
+                     num_replicas: int = 1, mesh=None) -> torch.Tensor:
     """Append one channel of batch-group stddev statistics: [B, H, W, C] ->
     [B, H, W, C + 1].
 
     ``num_replicas > 1`` splits the batch into that many contiguous chunks
     and never groups across them (per-replica statistics); more replicas
     than samples means whole-batch statistics, as in the reference.
+
+    With a data-parallel ``mesh`` (``parallel.sharding.Mesh``), ``x`` is
+    this rank's rows of a batch sharded over the ranks and the statistic
+    is the global batch's, as the reference's GSPMD step takes it: the
+    rank gathers the batch (differentiably), takes the statistic and keeps
+    its rows. When each rank's rows are one replica's chunk
+    (``num_replicas`` equal to the world size, ``--mbstd per-replica``),
+    no collective is needed.
     """
-    b = x.shape[0]
-    if num_replicas > b:
-        num_replicas = 1
-    if num_replicas <= 1:
-        stat = _mbstd_stat(x, group_size, eps)
+    if mesh is not None and mesh.world > 1:
+        if num_replicas == mesh.world:
+            stat = _mbstd_stat(x, group_size, eps)
+        else:
+            full = mesh.gather(x)
+            stat = _mbstd_stats(full, group_size, eps,
+                                num_replicas)[mesh.rows(full.shape[0])]
     else:
-        if b % num_replicas:
-            raise ValueError(
-                f"batch {b} must divide num_replicas {num_replicas}")
-        stat = torch.cat([_mbstd_stat(c, group_size, eps)
-                          for c in x.chunk(num_replicas)])
+        stat = _mbstd_stats(x, group_size, eps, num_replicas)
     return torch.cat([x, stat.to(x.dtype)], dim=-1)
 
 

@@ -17,8 +17,10 @@ A full queue answers 429, a request not served in time 504 (and is
 abandoned, never served late).
 
 The service runs either a restored generator through the in-process
-seeded sampler or a loaded ``.gsx`` artifact (``synth/export.py``,
-``cli serve --from-exported``), with no generator in the service.
+seeded sampler, or one replica of it per listed device with each batch
+split over them (``devices``, ``cli serve --data-parallel``), or a loaded
+``.gsx`` artifact (``synth/export.py``, ``cli serve --from-exported``),
+with no generator in the service.
 """
 
 from __future__ import annotations
@@ -60,11 +62,12 @@ class _Request:
         self.abandoned = False
 
 
-def batch_ladder(max_batch: int) -> Tuple[int, ...]:
-    """The batch rungs the service pads to: 1, 4, 16, ... below
-    ``max_batch``, then ``max_batch``."""
+def batch_ladder(max_batch: int, devices: int = 1) -> Tuple[int, ...]:
+    """The batch rungs the service pads to: ``devices``, 4 ``devices``, 16
+    ``devices``, ... below ``max_batch``, then ``max_batch`` (a multiple
+    of ``devices``, so every rung splits evenly over the devices)."""
     ladder = []
-    b = 1
+    b = devices
     while b < max_batch:
         ladder.append(b)
         b *= 4
@@ -75,10 +78,12 @@ class SynthesisService:
     """The warmed seeded sampler and the coalescing batcher.
 
     ``generator`` is the port's ``Generator`` with its weights, on the
-    device the service runs on; or ``generator`` is None and ``exported``
-    a loaded artifact (``synth.export.ExportedSampler``) with a symbolic
-    batch, whose program every rung calls. Call :meth:`close` to stop the
-    batcher.
+    device the service runs on; with ``devices`` (the counterpart of the
+    reference's ``mesh``) the service holds one replica of it per device,
+    rounds ``max_batch`` up to a multiple of their count and makes every
+    rung one; or ``generator`` is None and ``exported`` a loaded artifact
+    (``synth.export.ExportedSampler``) with a symbolic batch, whose
+    program every rung calls. Call :meth:`close` to stop the batcher.
     """
 
     def __init__(
@@ -91,14 +96,24 @@ class SynthesisService:
         max_queue_notes: int = 256,
         request_timeout_s: float = 30.0,
         exported=None,
+        devices=None,
     ):
-        from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+        from gansynth_tpu_torch.synth.sampler import (
+            make_dp_seeded_sampler,
+            make_seeded_sampler,
+        )
 
         self.config = config
         self.max_queue_notes = max_queue_notes
         self.request_timeout_s = request_timeout_s
         self.exported = exported is not None
+        self.devices = None if devices is None else list(devices)
+        n = 1
         if exported is not None:
+            if devices is not None:
+                raise ValueError(
+                    "artifact serving is a single lowered program; "
+                    "--data-parallel needs in-process weights")
             if exported.meta.get("batch") != "symbolic":
                 raise ValueError(
                     "serving needs a symbolic-batch artifact (export "
@@ -106,11 +121,21 @@ class SynthesisService:
                     f"{exported.meta.get('batch')}")
             self.device = exported.device
             self._sample = exported
+        elif devices is not None:
+            # Data-parallel serving: a coalesced batch splits over one
+            # replica per device. A note's audio is a function of its seed
+            # and pitch, so the split is invisible to clients; every rung
+            # is a multiple of the device count.
+            n = len(self.devices)
+            max_batch = -(-max_batch // n) * n
+            self.device = self.devices[0]
+            self._sample = make_dp_seeded_sampler(config, generator,
+                                                  self.devices, stage=stage)
         else:
             self.device = next(generator.parameters()).device
             self._sample = make_seeded_sampler(config, generator, stage=stage)
         self.max_batch = max_batch
-        self.batch_ladder = batch_ladder(max_batch)
+        self.batch_ladder = batch_ladder(max_batch, n)
         self.requests_served = 0
         self.coalesced_batches = 0
         self.device_batches = 0
@@ -249,6 +274,8 @@ class SynthesisService:
             return {
                 "status": "ok",
                 "device": str(self.device),
+                "mesh_devices": (None if self.devices is None
+                                 else len(self.devices)),
                 "max_batch": self.max_batch,
                 "batch_ladder": list(self.batch_ladder),
                 "warm_latency_s": {
@@ -267,8 +294,10 @@ class SynthesisService:
                 "sample_rate": self.config.audio.sample_rate,
                 "exported_artifact": self.exported,
                 # A note's audio is a function of (weights, seed, pitch) per
-                # batch rung; two rungs may differ in the last float bits.
-                "determinism": "per-rung",
+                # batch rung (and, split over devices, per device count);
+                # two rungs may differ in the last float bits.
+                "determinism": ("per-rung" if self.devices is None
+                                else "per-rung-per-mesh"),
             }
 
     def wav_bytes(self, waves: np.ndarray) -> bytes:

@@ -18,6 +18,7 @@ the program.
 
 from __future__ import annotations
 
+import copy
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -143,6 +144,76 @@ def make_seeded_sampler(config: Config, generator: torch.nn.Module,
         pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
         return _render(config, generator, stage, z,
                        pitch_to_onehot(pitch, config))[0]
+
+    return sample
+
+
+def _replicas(generator: torch.nn.Module, devices) -> list:
+    """One EMA replica per listed device (a copy each, so a device listed
+    twice holds two)."""
+    return [copy.deepcopy(generator).to(torch.device(d)).eval()
+            for d in devices]
+
+
+def _split_render(config: Config, replicas, stage: int, z: torch.Tensor,
+                  pitch: torch.Tensor) -> torch.Tensor:
+    """The batch split over the replicas in order: every replica's share
+    is launched before any result is read, then the waves come back to
+    the host in batch order."""
+    n = len(replicas)
+    if z.shape[0] % n:
+        raise ValueError(f"batch {z.shape[0]} must divide the {n} devices")
+    per = z.shape[0] // n
+    shares = []
+    for i, g in enumerate(replicas):   # the inputs, then every launch
+        dev = _device_of(g)
+        shares.append((g, z[i * per:(i + 1) * per].to(dev, non_blocking=True),
+                       pitch[i * per:(i + 1) * per].to(dev)))
+    waves = [_render(config, g, stage, zi, pitch_to_onehot(pi, config))[0]
+             for g, zi, pi in shares]
+    return torch.cat([w.cpu() for w in waves])
+
+
+def make_dp_sampler(config: Config, generator: torch.nn.Module, devices,
+                    stage: Optional[int] = None):
+    """The keyed sampler over ``devices`` (``gansynth_tpu/synth/sampler.py:
+    make_dp_sampler``): ``sample(key, pitches [B]) -> wave [B, 64000]`` on
+    the host, the batch's latents drawn from ``key`` as
+    :func:`make_sampler` draws them and the batch split over one replica
+    of ``generator`` per device. B must divide the device count."""
+    stage = config.model.num_stages - 1 if stage is None else stage
+    replicas = _replicas(generator, devices)
+
+    @torch.inference_mode()
+    def sample(key: Key, pitches: Sequence[int]) -> torch.Tensor:
+        pitch = torch.as_tensor(list(pitches), dtype=torch.long)
+        z = torch.from_numpy(normal(key, (len(pitch),
+                                          config.model.latent_dim)))
+        return _split_render(config, replicas, stage, z, pitch)
+
+    return sample
+
+
+def make_dp_seeded_sampler(config: Config, generator: torch.nn.Module,
+                           devices, stage: Optional[int] = None):
+    """The seeded serving sampler over ``devices``
+    (``gansynth_tpu/synth/sampler.py:make_dp_seeded_sampler``):
+    ``sample(seeds [B], pitches [B]) -> wave [B, 64000]`` on the host.
+
+    Serving needs no collective: a note is a function of its seed and
+    pitch alone. So one process holds one replica of ``generator`` per
+    device, splits the batch over them and launches every share before it
+    reads any. B must divide the device count. A device's share renders
+    what :func:`make_seeded_sampler` renders for the same notes at that
+    share's batch size."""
+    stage = config.model.num_stages - 1 if stage is None else stage
+    replicas = _replicas(generator, devices)
+
+    @torch.inference_mode()
+    def sample(seeds: Sequence[int], pitches: Sequence[int]) -> torch.Tensor:
+        z = torch.from_numpy(seeded_latents(seeds, config.model.latent_dim))
+        pitch = torch.as_tensor(list(pitches), dtype=torch.long)
+        return _split_render(config, replicas, stage, z, pitch)
 
     return sample
 

@@ -28,9 +28,20 @@ consumed when honoured. A file already present at start is honoured at
 the first boundary, never deleted unread: it may be a live request that
 raced a supervised child's start.
 
-The reference's mesh arguments (``mesh``, ``use_mesh``,
-``device_cache_layout="shard"``) raise ``NotImplementedError``: data
-parallelism is ``ROADMAP.md`` queue 1 item 4.
+Data parallelism (``mesh``, or ``use_mesh`` for the current process
+group's, ``parallel/sharding.py``): every rank runs this loop on its card
+with the same state (made from the seed or restored, then checked and
+broadcast by ``replicate_on_mesh``) and takes its rows of every global
+batch. A batch of the global size is sliced to the rank's rows; a batch
+of the local size (``--multihost``, where each process decodes only its
+slice) is taken as is. The device cache is placed per
+``device_cache_layout``: a full copy on every rank, or rank r's N/W
+examples under ``"shard"`` (N must divide the world size). Only rank 0
+writes ``metrics.jsonl``, checkpoints, ``ema.npz`` and the sample dumps;
+every rank restores. The STOP check of a group of ranks runs at the log
+cadence's crossings and is a max over the ranks' file checks (the
+reference's ``process_allgather``), so a STOP file on any rank stops every
+rank at the same step.
 """
 
 from __future__ import annotations
@@ -43,6 +54,12 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from gansynth_tpu_torch.parallel.sharding import (
+    cache_sharding,
+    make_mesh,
+    rank_rows,
+    replicate_on_mesh,
+)
 from gansynth_tpu_torch.synth import random as jrandom
 from gansynth_tpu_torch.train.schedule import schedule_from_config
 from gansynth_tpu_torch.train.state import TrainState, create_train_state
@@ -139,32 +156,50 @@ def train(
     step. With a ``workdir`` the loop logs to ``metrics.jsonl``, saves
     checkpoints under ``checkpoints/`` (restoring the latest at start), writes ``ema.npz`` at every checkpoint, dumps
     samples every ``sample_every`` steps and honours a ``STOP`` file.
+    With ``mesh`` (or ``use_mesh``) the run is data-parallel on
+    ``mesh.device``; see the module's docstring.
     """
-    if mesh is not None or use_mesh \
-            or config.train.device_cache_layout == "shard":
-        raise NotImplementedError(
-            "data parallelism (mesh, use_mesh, device_cache_layout="
-            "'shard') is not ported yet: ROADMAP.md queue 1 item 4")
-    device = resolve_device(device)
+    if use_mesh and mesh is None:
+        mesh = make_mesh()
+    device = mesh.device if mesh is not None else resolve_device(device)
+    lead = mesh is None or mesh.rank == 0   # writes the run's files
     schedule = schedule_from_config(config)
     unroll = max(1, int(config.train.unroll))
+    sharded = mesh is not None and cache_sharding(
+        config.train.device_cache_layout) == "shard"
+    if device_dataset is not None:
+        num_examples = int(len(device_dataset[0]))
+        if sharded and num_examples % mesh.world:
+            raise ValueError(
+                f"device_cache_layout='shard' needs the dataset size "
+                f"({num_examples}) divisible by the world size "
+                f"({mesh.world}); pad/trim the cache or use 'replicate'")
     logger = checkpointer = None
     state = create_train_state(config, device=device)
     if workdir is not None:
-        from gansynth_tpu_torch.utils.checkpoint import Checkpointer
+        from gansynth_tpu_torch.utils.checkpoint import (
+            Checkpointer,
+            refuse_orbax,
+        )
         from gansynth_tpu_torch.utils.logging import MetricLogger
 
-        logger = MetricLogger(workdir)
+        if lead:
+            logger = MetricLogger(workdir)
         checkpointer = Checkpointer(os.path.join(workdir, "checkpoints"))
+        refuse_orbax(checkpointer.directory)
         if checkpointer.latest_step() is not None:
             state, _ = checkpointer.restore(state)
+    if mesh is not None:
+        state = replicate_on_mesh(mesh, state)
 
     if device_dataset is not None:
-        all_waves = torch.from_numpy(
-            np.asarray(device_dataset[0], np.float32)).to(device)
+        waves, pitches = device_dataset
+        if sharded:
+            rows = mesh.rows(num_examples)
+            waves, pitches = waves[rows], pitches[rows]
+        all_waves = torch.from_numpy(np.asarray(waves, np.float32)).to(device)
         all_pitches = torch.from_numpy(
-            np.asarray(device_dataset[1], np.int32)).to(device)
-        num_examples = int(all_waves.shape[0])
+            np.asarray(pitches, np.int32)).to(device)
     elif data_iter is None and data_factory is None:
         raise ValueError("pass data_iter, data_factory, or device_dataset")
     if (config.train.stage_batch_sizes is not None
@@ -181,6 +216,11 @@ def train(
                 f"step {int(state.step)}")
         for _ in range(behind):
             next(data_iter)
+    if mesh is not None and unroll == 1 and data_iter is not None:
+        from gansynth_tpu_torch.data.prefetch import prefetch_to_mesh
+
+        data_iter = prefetch_to_mesh(data_iter, mesh,
+                                     config.train.batch_size)
 
     release_step = config.train.pitch_consistency_release_step
     released_config = _check_release(config)
@@ -201,15 +241,20 @@ def train(
             cfg = released_config if released else config
             if device_dataset is not None:
                 step_fns[key] = make_cached_superstep(cfg, stage,
-                                                      num_examples)
+                                                      num_examples, mesh)
             elif fused:
-                step_fns[key] = make_superstep(cfg, stage)
+                step_fns[key] = make_superstep(cfg, stage, mesh)
             else:
-                step_fns[key] = make_train_step(cfg, stage)
+                step_fns[key] = make_train_step(cfg, stage, mesh)
         return step_fns[key]
 
-    def to_device(array, dtype):
-        return torch.from_numpy(np.asarray(array, dtype)).to(device)
+    def to_device(array, dtype, global_batch, axis=0):
+        """A batch (or a [K, B, ...] chunk) on the device; under a mesh,
+        this rank's part of it (``rank_rows``)."""
+        array = np.asarray(array, dtype)
+        if mesh is not None:
+            array = rank_rows(mesh, array, global_batch, axis)
+        return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
     start = int(state.step)
     end = schedule.total_steps() if num_steps is None else start + num_steps
@@ -231,6 +276,17 @@ def train(
             "will checkpoint and exit at its first superstep boundary "
             "(remove the file first if that is not intended)", stacklevel=2)
 
+    def _stop_requested(prev: int, new: int) -> bool:
+        if stop_path is None:
+            return False
+        if mesh is None or mesh.world == 1:
+            return os.path.exists(stop_path)
+        # Every rank must stop at the same step: decide at the log
+        # cadence's crossings, on any rank's file.
+        if not _crossed(prev, new, max(config.train.log_every, 1)):
+            return False
+        return mesh.any(os.path.exists(stop_path))
+
     def _stage_start(step: int) -> int:
         for _, seg_start, seg_end in schedule.stage_boundaries():
             if step < seg_end:
@@ -245,6 +301,11 @@ def train(
             data_iter = data_factory(stage,
                                      config.train.batch_for_stage(stage),
                                      step_idx - _stage_start(step_idx))
+            if mesh is not None and unroll == 1:
+                from gansynth_tpu_torch.data.prefetch import prefetch_to_mesh
+
+                data_iter = prefetch_to_mesh(
+                    data_iter, mesh, config.train.batch_for_stage(stage))
             factory_stage = stage
         k = min(unroll, end - step_idx,
                 schedule.steps_until_stage_change(step_idx))
@@ -260,15 +321,20 @@ def train(
                 state, all_waves, all_pitches, alphas)
         elif k == 1 and unroll == 1:
             wave, pitch = next(data_iter)
+            if not torch.is_tensor(wave):   # prefetched under a mesh
+                batch = config.train.batch_for_stage(stage)
+                wave = to_device(wave, np.float32, batch)
+                pitch = to_device(pitch, np.int32, batch)
             state, metrics = get_step_fn(stage, False, released)(
-                state, to_device(wave, np.float32),
-                to_device(pitch, np.int32), float(alphas[0]))
+                state, wave, pitch, float(alphas[0]))
         else:
+            batch = config.train.batch_for_stage(stage)
             batches = [next(data_iter) for _ in range(k)]
             waves = to_device(np.stack([np.asarray(b[0]) for b in batches]),
-                              np.float32)
+                              np.float32, batch, axis=1)
             pitches = to_device(np.stack([np.asarray(b[1])
-                                          for b in batches]), np.int32)
+                                          for b in batches]), np.int32,
+                                batch, axis=1)
             state, metrics = get_step_fn(stage, True, released)(
                 state, waves, pitches, alphas)
         steps_since_log += k
@@ -284,8 +350,8 @@ def train(
                                                              1e-9)
             t_last, steps_since_log = now, 0
             logger.log(new_step, metrics, stage=stage)
-        stop_now = stop_path is not None and os.path.exists(stop_path)
-        if checkpointer is not None and (
+        stop_now = _stop_requested(step_idx, new_step)
+        if lead and checkpointer is not None and (
                 _crossed(step_idx, new_step, config.train.checkpoint_every)
                 or new_step == end or stop_now):
             from gansynth_tpu_torch.utils.checkpoint import save_ema_npz
@@ -294,7 +360,7 @@ def train(
             save_ema_npz(
                 os.path.join(workdir, "ema.npz"), state.ema, new_step,
                 stage=schedule.stage_and_alpha(max(new_step - 1, 0))[0])
-        if (workdir is not None and config.train.sample_every
+        if (lead and workdir is not None and config.train.sample_every
                 and _crossed(step_idx, new_step, config.train.sample_every)):
             _dump_samples(config, state, get_sampler(stage), new_step,
                           workdir, logger)
@@ -302,7 +368,8 @@ def train(
             _maybe_inject_stall(stall_spec, new_step)
         step_idx = new_step
         if stop_now:
-            os.remove(stop_path)
+            if os.path.exists(stop_path):   # on the ranks that hold it
+                os.remove(stop_path)
             print(f"graceful stop: STOP file honored at step {new_step}; "
                   "checkpointed and exiting cleanly", flush=True)
             break

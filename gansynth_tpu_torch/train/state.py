@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 from typing import Iterable, Optional, Tuple
 
 import numpy as np
@@ -111,22 +112,60 @@ def train_key(seed: int) -> Tuple[int, int]:
     return jrandom.split(jrandom.seed_to_key(seed), 3)[2]
 
 
+def _flax_param_key(key: jrandom.Key, path: Tuple) -> jrandom.Key:
+    """flax's key of one parameter (``flax/core/scope.py:_fold_in_static``,
+    flax 0.12.3 without ``flax_fix_rng_separator``): the first 4 bytes of
+    the SHA-1 of the scope path, names as UTF-8 and the scope's rng
+    counter as big-endian bytes, folded into the network's key."""
+    digest = hashlib.sha1()
+    for part in path:
+        digest.update(part.encode() if isinstance(part, str)
+                      else part.to_bytes((part.bit_length() + 7) // 8, "big"))
+    return jrandom.fold_in(key, int.from_bytes(digest.digest()[:4], "big"))
+
+
+@torch.no_grad()
+def init_like_reference(network: nn.Module, key: jrandom.Key) -> None:
+    """In place: the weights ``network.init(key, ...)`` gives in the
+    reference. Every module's kernel is its first parameter (rng counter
+    1), drawn ``normal(1.0)`` in the reference's layout (HWIO, [in, out])
+    and transposed; biases are zeros (``gansynth_tpu/models/layers.py:
+    50,60``). The normals equal JAX's to an ulp or so
+    (``synth/random.py``)."""
+    from gansynth_tpu_torch.utils.checkpoint import _jax_path
+
+    for name, p in network.named_parameters():
+        *scope, leaf = _jax_path(name)
+        if leaf == "bias":
+            p.zero_()
+            continue
+        perm = (1, 0) if p.ndim == 2 else (2, 3, 1, 0)   # port -> reference
+        w = jrandom.normal(_flax_param_key(key, (*scope, 1)),
+                           [p.shape[i] for i in perm])
+        p.copy_(torch.from_numpy(np.ascontiguousarray(
+            w.transpose(np.argsort(perm)))))
+
+
 def create_train_state(config: Config, seed: Optional[int] = None,
                        device="cuda", g: Optional[Generator] = None,
                        ema: Optional[Generator] = None) -> TrainState:
-    """Fresh state on ``device``: G and D initialised from a
-    ``torch.Generator`` seeded with ``seed`` (``config.train.seed`` if
-    None), or the given ``g`` (and ``ema``, else a copy of ``g``); Adam
-    fresh for both; the key :func:`train_key` of the seed. (The weights'
-    init is torch's, not the reference's; the key is the reference's.)"""
+    """Fresh state on ``device``, as the reference makes it for ``seed``
+    (``config.train.seed`` if None): ``key(seed)`` split into (kg, kd,
+    krest); G and D initialised from kg and kd
+    (:func:`init_like_reference`), or the given ``g`` (and ``ema``, else a
+    copy of ``g``); Adam fresh for both; krest as the state's key
+    (:func:`train_key`). Every process that makes the state from one seed
+    holds the same weights."""
     from gansynth_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     seed = config.train.seed if seed is None else seed
-    rng = torch.Generator().manual_seed(seed)
+    kg, kd, _ = jrandom.split(jrandom.seed_to_key(seed), 3)
     if g is None:
-        g = Generator(config.model, generator=rng)
-    d = Discriminator(config.model, generator=rng)
+        g = Generator(config.model)
+        init_like_reference(g, kg)
+    d = Discriminator(config.model)
+    init_like_reference(d, kd)
     g, d = g.to(dev).train(), d.to(dev).train()
     ema = (copy.deepcopy(g) if ema is None else ema.to(dev)).eval()
     for p in ema.parameters():

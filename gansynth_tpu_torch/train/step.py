@@ -101,24 +101,48 @@ def _to_device(noise: Dict[str, np.ndarray],
     return out
 
 
-def _set_grads(loss: torch.Tensor, params) -> None:
+def _set_grads(loss: torch.Tensor, params, mesh=None) -> None:
     """``p.grad`` for every parameter; ``None`` where ``loss`` does not
-    depend on ``p`` (Adam then updates it as with a zero gradient)."""
+    depend on ``p`` (Adam then updates it as with a zero gradient). With a
+    data-parallel ``mesh`` the gradients are the mean over the ranks of
+    each rank's, all-reduced in one flat bucket (zeros for ``None``)."""
     params = list(params)
     grads = torch.autograd.grad(loss, params, allow_unused=True)
+    if mesh is not None:
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        flat = mesh.all_reduce_mean(torch.cat([g.reshape(-1)
+                                               for g in grads]))
+        grads = [t.view_as(p) for t, p in
+                 zip(flat.split([p.numel() for p in params]), params)]
     for p, g in zip(params, grads):
         p.grad = g
+
+
+def _mean_over_ranks(metrics: Dict[str, torch.Tensor],
+                     mesh) -> Dict[str, torch.Tensor]:
+    """Every metric's mean over the ranks, in one all-reduce: the ranks'
+    local batches are equal, so a mean of local means is the global
+    batch's mean."""
+    flat = mesh.all_reduce_mean(torch.stack(list(metrics.values())))
+    return dict(zip(metrics, flat.unbind()))
 
 
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 
 
-def make_train_step(config: Config, stage: int) -> StepFn:
+def make_train_step(config: Config, stage: int, mesh=None) -> StepFn:
     """The step function for ``stage``:
     ``step(state, wave [B, T], pitch [B], alpha, z_d=None, u=None,
     z_g=None) -> (state, metrics)``. Noise not passed is drawn from the
     state's key and step (:func:`step_noise`). The state is updated in
-    place; the metrics are 0-d float32 tensors."""
+    place; the metrics are 0-d float32 tensors.
+
+    With a data-parallel ``mesh`` (``parallel.sharding``), ``wave`` and
+    ``pitch`` are this rank's rows of the global batch; the noise (drawn,
+    or passed for the global batch) is taken at the same rows; the
+    minibatch-stddev statistic, the gradients and the metrics are the
+    global batch's, so every rank holds the same state after the step."""
     m, t = config.model, config.train
     if t.fused_critic not in ("none", "pair", "all"):
         raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
@@ -127,7 +151,7 @@ def make_train_step(config: Config, stage: int) -> StepFn:
 
     def critic_update(state, real, labels, z_d, u, alpha):
         def critic_fn(x):
-            return state.d(x, stage, alpha)
+            return state.d(x, stage, alpha, mesh)
 
         with torch.no_grad():   # no gradient to G (step.py:89)
             fake = state.g(z_d, labels, stage, alpha)
@@ -141,7 +165,7 @@ def make_train_step(config: Config, stage: int) -> StepFn:
         aux = ce + ce_fake if t.d_pitch_ce_on_fake else ce
         d_loss = wgan + t.gp_weight * gp + t.drift_weight * drift \
             + t.aux_pitch_weight * aux
-        _set_grads(d_loss, state.d.parameters())
+        _set_grads(d_loss, state.d.parameters(), mesh)
         state.d_opt.step()
         return {
             "d_loss": d_loss, "wgan": wgan, "gradient_penalty": gp,
@@ -152,7 +176,7 @@ def make_train_step(config: Config, stage: int) -> StepFn:
 
     def generator_update(state, labels, z_g, alpha):
         fake = state.g(z_g, labels, stage, alpha)
-        c_fake, logits_fake = state.d(fake, stage, alpha)
+        c_fake, logits_fake = state.d(fake, stage, alpha, mesh)
         adv = losses.generator_adversarial_loss(c_fake)
         ce = losses.pitch_cross_entropy(logits_fake, labels)
         g_loss = adv + t.aux_pitch_weight * ce
@@ -164,7 +188,7 @@ def make_train_step(config: Config, stage: int) -> StepFn:
             g_loss = g_loss + t.pitch_consistency_weight * pc
             out["g_pitch_consistency"] = pc
         out["g_loss"] = g_loss
-        _set_grads(g_loss, state.g.parameters())
+        _set_grads(g_loss, state.g.parameters(), mesh)
         state.g_opt.step()
         return out
 
@@ -173,13 +197,15 @@ def make_train_step(config: Config, stage: int) -> StepFn:
                 u: Optional[torch.Tensor] = None,
                 z_g: Optional[torch.Tensor] = None):
         device = wave.device
-        batch = wave.shape[0]
-        given = {"z_d": z_d, "u": u, "z_g": z_g}
+        batch = wave.shape[0] * (1 if mesh is None else mesh.world)
+        rows = slice(None) if mesh is None else mesh.rows(batch)
+        given = {k: None if v is None else v[rows]
+                 for k, v in (("z_d", z_d), ("u", u), ("z_g", z_g))}
         if any(v is None for v in given.values()):
             drawn = step_noise(state.rng, state.step, batch, m.latent_dim)
-            drawn = _to_device({k: drawn[k] for k, v in given.items()
-                                if v is None}, device)
-            given.update(drawn)
+            given.update(_to_device({k: drawn[k][rows]
+                                     for k, v in given.items() if v is None},
+                                    device))
         z_d, u, z_g = given["z_d"], given["u"], given["z_g"]
         labels = pitch_to_onehot(pitch.to(device), config)
         with torch.no_grad(), record_function("spectral_frontend"):
@@ -196,6 +222,8 @@ def make_train_step(config: Config, stage: int) -> StepFn:
             ema_update(state.ema, state.g, t.ema_decay)
         state.step += 1
         metrics = {k: v.detach().float() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = _mean_over_ranks(metrics, mesh)
         metrics["alpha"] = torch.tensor(float(alpha))
         return state, metrics
 
@@ -211,13 +239,14 @@ def _mean_metrics(metrics, alpha) -> Dict[str, torch.Tensor]:
     return out
 
 
-def make_superstep(config: Config, stage: int) -> StepFn:
+def make_superstep(config: Config, stage: int, mesh=None) -> StepFn:
     """K steps in one call: ``superstep(state, waves [K, B, T], pitches
     [K, B], alphas [K]) -> (state, metrics)``, the metrics averaged over
     the K steps, plus the last alpha. Each step draws its noise from
     ``(state.rng, state.step)``, so a run chunked into supersteps equals
-    the same steps taken one at a time."""
-    step_fn = make_train_step(config, stage)
+    the same steps taken one at a time. With a ``mesh``, B is this rank's
+    rows (:func:`make_train_step`)."""
+    step_fn = make_train_step(config, stage, mesh)
 
     def superstep(state, waves, pitches, alphas):
         metrics = []
@@ -265,16 +294,56 @@ def cached_batch_indices(rng: Tuple[int, int], step: int, batch: int,
                     _epoch_permutation(rng, e0 + 1, num_examples)[rank])
 
 
-def make_cached_superstep(config: Config, stage: int,
-                          num_examples: int) -> StepFn:
+def _gather_from_owners(mesh, all_waves: torch.Tensor,
+                        all_pitches: torch.Tensor, idx: np.ndarray,
+                        num_examples: int):
+    """This rank's rows of the batch at global example indices ``idx``
+    from a cache sharded over the ranks (rank r holds examples ``[r N/W,
+    (r+1) N/W)``): each rank writes the rows it owns into a zero batch,
+    and one all-reduce of the bits (each element has one owner, so the
+    sum is exact) gives every rank the batch; O(B T) a step."""
+    per = num_examples // mesh.world
+    owner, local = idx // per, idx % per
+    mine = torch.from_numpy(np.flatnonzero(owner == mesh.rank)).to(
+        all_waves.device)
+    take = torch.from_numpy(local[owner == mesh.rank].astype(np.int64)).to(
+        all_waves.device)
+    waves = all_waves.new_zeros((len(idx), all_waves.shape[1]))
+    pitches = all_pitches.new_zeros(len(idx))
+    waves.index_copy_(0, mine, all_waves.index_select(0, take))
+    pitches.index_copy_(0, mine, all_pitches.index_select(0, take))
+    bits = torch.cat([waves.view(torch.int32).reshape(-1),
+                      pitches.to(torch.int32)])
+    mesh.all_reduce_sum(bits)
+    rows = mesh.rows(len(idx))
+    waves = bits[:waves.numel()].view(torch.float32).view_as(waves)
+    return waves[rows], bits[waves.numel():][rows].to(all_pitches.dtype)
+
+
+def make_cached_superstep(config: Config, stage: int, num_examples: int,
+                          mesh=None) -> StepFn:
     """K steps over a dataset held on the device: ``superstep(state,
     all_waves [N, T], all_pitches [N], alphas [K]) -> (state, metrics)``.
     Each step gathers its batch at :func:`cached_batch_indices` of the
     state's key and step under ``config.train.cached_stream``, with the
     stage's batch (``stage_batch_sizes``); only the indices cross to the
-    device."""
-    step_fn = make_train_step(config, stage)
+    device.
+
+    With a ``mesh``, every rank draws the global batch's indices and
+    takes its rows: from its full copy of the dataset under
+    ``device_cache_layout="replicate"``, or from their owners under
+    ``"shard"`` (``all_waves`` is then this rank's N/W examples;
+    ``num_examples`` stays N)."""
+    step_fn = make_train_step(config, stage, mesh)
     batch = config.train.batch_for_stage(stage)
+    sharded = mesh is not None and config.train.device_cache_layout == "shard"
+    if mesh is not None:
+        mesh.rows(batch)   # the global batch must divide the world size
+    if sharded and num_examples % mesh.world:
+        raise ValueError(
+            f"device_cache_layout='shard' needs the dataset size "
+            f"({num_examples}) divisible by the world size ({mesh.world}); "
+            "pad/trim the cache or use 'replicate'")
     law = config.train.cached_stream
     if law not in ("shuffle", "replacement"):
         raise ValueError(f"unknown cached_stream {law!r}")
@@ -288,10 +357,17 @@ def make_cached_superstep(config: Config, stage: int,
         for alpha in alphas:
             idx = cached_batch_indices(state.rng, state.step, batch,
                                        num_examples, law)
-            idx = host_to_device(idx.astype(np.int64), all_waves.device)
-            state, m = step_fn(state, all_waves.index_select(0, idx),
-                               all_pitches.index_select(0, idx),
-                               float(alpha))
+            if sharded:
+                wave, pitch = _gather_from_owners(mesh, all_waves,
+                                                  all_pitches, idx,
+                                                  num_examples)
+            else:
+                if mesh is not None:
+                    idx = idx[mesh.rows(batch)]
+                idx = host_to_device(idx.astype(np.int64), all_waves.device)
+                wave = all_waves.index_select(0, idx)
+                pitch = all_pitches.index_select(0, idx)
+            state, m = step_fn(state, wave, pitch, float(alpha))
             metrics.append(m)
         return state, _mean_metrics(metrics, alphas[-1])
 

@@ -17,7 +17,10 @@ package reads.
 orbax) keeps the whole training state, written with ``torch.save``, in
 ``<dir>/<step>/state.pt``: a directory named by the step's digits, which
 ``cli train`` lists to find the resume step and the supervisor watches as
-a heartbeat.
+a heartbeat. A step directory without ``state.pt`` is the reference's
+(orbax: ``_CHECKPOINT_METADATA`` and ``default/``); the port does not
+read it (:func:`orbax_steps` lists them), and a run that has only such
+steps restores its EMA from ``ema.npz``.
 """
 
 from __future__ import annotations
@@ -171,6 +174,34 @@ def save_ema_npz(path: str, ema: torch.nn.Module, step: int,
     return path
 
 
+def orbax_steps(directory: str):
+    """The steps under ``directory`` that only the reference saved: step
+    directories without the port's ``state.pt``, ascending."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(p) for p in os.listdir(directory) if p.isdigit()
+                  and not os.path.exists(os.path.join(directory, p,
+                                                      Checkpointer.FILE)))
+
+
+def refuse_orbax(directory: str) -> None:
+    """Raises ``ValueError`` when the newest step under ``directory`` is
+    one that only the reference saved (orbax): the port cannot read it,
+    so a resumed run or an export from it would silently start from an
+    older state."""
+    foreign = orbax_steps(directory)
+    if not foreign:
+        return
+    ours = [s for s in os.listdir(directory) if s.isdigit()
+            and int(s) not in foreign]
+    if max(foreign) > max((int(s) for s in ours), default=-1):
+        raise ValueError(
+            f"{directory}/{max(foreign)} is the reference's orbax checkpoint "
+            "(no state.pt); the port cannot read it. Serve, generate or "
+            "evaluate the run from its ema.npz, or train on in a fresh "
+            "--model-dir")
+
+
 class Checkpointer:
     """The full training state under ``directory/<step>/state.pt``: the
     three networks' and both Adams' state dicts (Adam's shared ``count``
@@ -182,13 +213,16 @@ class Checkpointer:
     FILE = "state.pt"
 
     def __init__(self, directory: str, max_to_keep: int = 3):
-        self._dir = os.path.abspath(directory)
+        self.directory = os.path.abspath(directory)
         self.max_to_keep = max_to_keep
-        os.makedirs(self._dir, exist_ok=True)
+        os.makedirs(self.directory, exist_ok=True)
 
     def steps(self):
-        """The saved steps, ascending."""
-        return sorted(int(p) for p in os.listdir(self._dir) if p.isdigit())
+        """The saved steps, ascending: the step directories that hold
+        ``state.pt``."""
+        return sorted(int(p) for p in os.listdir(self.directory) if p.isdigit()
+                      and os.path.exists(os.path.join(self.directory, p,
+                                                      self.FILE)))
 
     def latest_step(self) -> Optional[int]:
         return max(self.steps(), default=None)
@@ -201,8 +235,8 @@ class Checkpointer:
             "d_opt": state.d_opt.state_dict(),
             "rng": [int(w) for w in state.rng], "step": int(state.step),
         }
-        final = os.path.join(self._dir, str(int(step)))
-        tmp = os.path.join(self._dir, f".tmp-{int(step)}-{os.getpid()}")
+        final = os.path.join(self.directory, str(int(step)))
+        tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         with open(os.path.join(tmp, self.FILE), "wb") as f:
@@ -216,19 +250,19 @@ class Checkpointer:
             shutil.rmtree(old)
         else:
             os.rename(tmp, final)
-        _fsync_dir(self._dir)
+        _fsync_dir(self.directory)
         for old_step in self.steps()[:-self.max_to_keep]:
-            shutil.rmtree(os.path.join(self._dir, str(old_step)))
+            shutil.rmtree(os.path.join(self.directory, str(old_step)))
 
     def restore(self, template, step: Optional[int] = None):
         """Load checkpoint ``step`` (the latest when None) into
         ``template`` in place, on its devices: ``(state, step)``."""
         step = self.latest_step() if step is None else step
         if step is None:
-            raise FileNotFoundError(f"no checkpoint under {self._dir}")
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
         device = next(template.g.parameters()).device
         payload = torch.load(
-            os.path.join(self._dir, str(step), self.FILE),
+            os.path.join(self.directory, str(step), self.FILE),
             map_location=device, weights_only=True)
         for name in ("g", "d", "ema", "g_opt", "d_opt"):
             getattr(template, name).load_state_dict(payload[name])

@@ -2,10 +2,12 @@
 ``fixtures`` commands on the CPU (``--device cpu``).
 
 - ``train --dump-config`` prints the reference's JSON for the same flags.
-- What the port refuses (``--ingest tf``, ``--data-parallel``,
-  ``--multihost``, ``--mbstd per-replica``, ``--device-cache-layout
-  shard``) exits 2 with an error; without ``--device cpu`` and without a
-  card, ``train`` raises instead of running on the CPU.
+- What the port refuses (``--ingest tf``; ``--multihost`` and
+  ``--data-parallel`` on the CPU outside a launcher's group; a global
+  batch that does not divide the world size) exits 2 with an error;
+  without ``--device cpu`` and without a card, ``train`` raises instead
+  of running on the CPU. The data-parallel runs themselves are
+  ``test_torch_dp_cli.py``'s.
 - ``train --synthetic --device-cache`` writes ``checkpoints/<step>/``,
   ``ema.npz`` and ``metrics.jsonl``; a second call resumes where the
   first stopped; ``export-ema`` archives the latest checkpoint; ``serve``
@@ -88,12 +90,17 @@ def test_dump_config_matches_the_reference(flags, tiny_config, capsys,
 
 @pytest.mark.parametrize("flags,word", [
     (["--ingest", "tf"], "TensorFlow"),
-    (["--data-parallel"], "queue 1 item 4"),
-    (["--multihost"], "queue 1 item 4"),
-    (["--mbstd", "per-replica"], "queue 1 item 4"),
-    (["--device-cache-layout", "shard"], "queue 1 item 4"),
+    (["--multihost"], "launcher"),
+    (["--data-parallel"], "launcher"),
+    (["--data-parallel", "--batch-size", "6"], "divide"),
 ])
-def test_refused_flags_exit_2(flags, word, tmp_path, capsys):
+def test_refused_flags_exit_2(flags, word, tmp_path, capsys, monkeypatch):
+    """``--multihost`` outside a launcher's group, ``--data-parallel`` on
+    the CPU outside one (there are no cards to start workers on), and a
+    global batch that does not divide the world size (4, a launcher's
+    WORLD_SIZE) exit 2 before anything is written."""
+    if "6" in flags:
+        monkeypatch.setenv("WORLD_SIZE", "4")
     argv = ["train", "--model-dir", str(tmp_path), "--synthetic",
             "--device", "cpu", *flags]
     assert cli.main(argv) == 2

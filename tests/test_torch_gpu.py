@@ -344,3 +344,92 @@ def test_exported_sampler_launches_the_kernel(cuda_device, tmp_path):
     # one more from the in-process sampler, none from the CPU
     assert K.synthesis_spectrum.launches == before + 2
     _wave_bar(cpu, got.cpu())
+
+
+def _step_state(config, device, seed=0):
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(config, seed=seed, device=device)
+    waves, pitches = note_batch(config.train.batch_size)
+    return (state, torch.from_numpy(waves).to(device),
+            torch.from_numpy(pitches).to(device))
+
+
+@pytest.mark.gpu
+def test_nccl_world_one_step_equals_no_group(cuda_device):
+    """One card in an NCCL group of one rank: the data-parallel cached
+    superstep runs its collectives (the gradient buckets, the metrics, the
+    sharded cache's gather) and ends where the superstep without a group
+    ends. cuDNN runs its deterministic algorithms here (its float32 weight
+    gradients may otherwise sum in another order from run to run), and
+    the metrics and weights must be within twice the distance between two
+    runs without a group (0 where they repeat)."""
+    import copy
+    import socket
+
+    import torch.distributed as dist
+
+    from gansynth_tpu_torch.parallel import sharding
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.config import Config
+
+    config = Config().with_overrides({
+        "model": dict(latent_dim=8, fmap_base=64, fmap_max=16, fmap_min=8),
+        "train": dict(batch_size=4, device_cache_layout="shard")})
+    state, waves, pitches = _step_state(config, cuda_device)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    sharding.initialize_multihost(cuda_device, f"tcp://127.0.0.1:{port}",
+                                  0, 1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mesh = sharding.make_mesh()
+        assert (mesh.world, mesh.grouped, dist.get_backend()) == \
+            (1, True, "nccl")
+        results = []
+        for m in (None, None, mesh):
+            st = copy.deepcopy(state)
+            st, metrics = make_cached_superstep(config, 2, 4, m)(
+                st, waves, pitches, [0.5, 1.0])
+            results.append(({k: float(v) for k, v in metrics.items()},
+                            [p.detach().clone() for p in
+                             [*st.g.parameters(), *st.d.parameters()]]))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        dist.destroy_process_group()
+    (m0, w0), (m1, w1), (m2, w2) = results
+    for k in m0:
+        assert abs(m2[k] - m0[k]) <= 2 * abs(m1[k] - m0[k]), k
+    repeat = max(float((a - b).abs().max()) for a, b in zip(w0, w1))
+    group = max(float((a - b).abs().max()) for a, b in zip(w0, w2))
+    assert group <= 2 * repeat, (group, repeat)
+
+
+@pytest.mark.gpu
+def test_remat_lowers_the_step_peak_memory(cuda_device):
+    """The stage-6 step at the flagship's widths, batch 2, float32: with
+    ``remat=True`` the step's peak memory is below ``remat=False``'s, and
+    its metrics agree (bar of chip_smoke.py's phase 9)."""
+    from gansynth_tpu_torch.train.step import make_train_step
+    from gansynth_tpu_torch.utils.config import Config
+
+    peaks, metrics = {}, {}
+    for remat in (False, True):
+        config = Config().with_overrides({"model": {"remat": remat},
+                                          "train": {"batch_size": 2}})
+        state, waves, pitches = _step_state(config, cuda_device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        _, m = make_train_step(config, 6)(state, waves, pitches, 1.0)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        metrics[remat] = {k: float(v) for k, v in m.items()}
+        del state
+        torch.cuda.empty_cache()
+    assert peaks[True] < peaks[False], peaks
+    for k, v in metrics[False].items():
+        assert abs(metrics[True][k] - v) <= 1e-3 * max(1.0, abs(v)), k

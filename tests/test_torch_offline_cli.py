@@ -339,6 +339,39 @@ def test_restore_prefers_the_checkpoint_over_a_float16_export(params,
     assert rounded   # the export's weights differ: the choice shows
 
 
+def test_generate_on_a_run_the_reference_checkpointed(params, tmp_path,
+                                                     capsys):
+    """A run directory as the reference's loop leaves it: an orbax
+    checkpoint at step 5 written by the reference's own ``Checkpointer``
+    (no port ``state.pt`` beside it) and the ``ema.npz`` its loop writes
+    with it (float32, the schedule's stage). The port falls back to
+    ``ema.npz`` and generates the reference's waves; ``export-ema`` and a
+    resumed ``train`` exit 2 naming the orbax checkpoint."""
+    from gansynth_tpu.utils.checkpoint import save_ema_npz as j_save_npz
+
+    run = tiny.make_run(str(tmp_path / "run"), params, stage=1)
+    jcfg, _ = tiny.configs()
+    jck = JCheckpointer(os.path.join(run, "checkpoints"))
+    jck.save(tiny.STEP, j_state(jcfg, seed=0).replace(ema_params=params),
+             wait=True)
+    jck.close()
+    j_save_npz(os.path.join(run, "ema.npz"), params, tiny.STEP, stage=1)
+    assert not os.path.exists(os.path.join(run, "checkpoints", "5",
+                                           "state.pt"))
+    argv = ["generate", "--model-dir", run, "--pitches", "48", "72",
+            "--seed", "4"]
+    assert j_main([*argv, "--output-dir", str(tmp_path / "j")]) == 0
+    assert cli.main([*argv, "--output-dir", str(tmp_path / "t"), *CPU]) == 0
+    _same_wavs(tmp_path / "j", tmp_path / "t")
+    capsys.readouterr()
+    for command in (["export-ema", "--model-dir", run],
+                    ["train", "--model-dir", run, "--synthetic",
+                     "--num-steps", "1"]):
+        assert cli.main([*command, *CPU]) == 2
+        assert "orbax" in capsys.readouterr().err
+    assert not os.path.exists(os.path.join(run, "fixtures.tfrecord"))
+
+
 def test_restore_takes_the_schedule_stage_and_renders_there(params,
                                                             tmp_path):
     """An ``ema.npz`` with no ``__stage__``: both take the schedule's

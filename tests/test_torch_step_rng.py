@@ -9,7 +9,9 @@ bit (threefry, partitionable layout, as ``tests/conftest.py`` pins);
 normal draws to 1e-6 (see ``test_torch_random.py``). A whole step with
 drawn noise is then held to the reference's at the bars of
 ``test_torch_train_step.py``, and a run resumed from a saved state
-replays the noise and the results of an unbroken one exactly.
+replays the noise and the results of an unbroken one exactly. The
+initial weights come from the same seed as the reference's (flax's
+per-parameter keys, ``train/state.py:init_like_reference``).
 """
 
 import copy
@@ -76,6 +78,34 @@ def test_train_key_is_the_reference_state_key(seed):
     cfg = Config().with_overrides(NARROW)
     assert create_train_state(cfg, seed=seed, device="cpu").rng == \
         _data(krest)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2024])
+def test_seeded_weights_are_the_references(seed):
+    """``create_train_state(config, seed)`` holds the reference's initial
+    G, D and EMA (``g.init(kg, ...)``, ``d.init(kd, ...)``): each kernel
+    is drawn from flax's key of its module path, biases are zero. The
+    normals equal JAX's within 4 ulp (measured: 3; the port takes
+    ``log1p`` in float64, XLA in float32), every other value to the bit."""
+    from gansynth_tpu.train import create_train_state as j_create
+    from gansynth_tpu.utils.config import Config as JConfig
+    from gansynth_tpu_torch.utils.checkpoint import to_jax_params
+
+    want = j_create(JConfig().with_overrides(NARROW), seed=seed)
+    got = create_train_state(Config().with_overrides(NARROW), seed=seed,
+                             device="cpu")
+    for net, params in (("g", want.g_params), ("d", want.d_params),
+                        ("ema", want.ema_params)):
+        flat = {"".join(f"['{k.key}']" for k in path): np.asarray(v)
+                for path, v in jax.tree_util.tree_flatten_with_path(
+                    params)[0]}
+        mine = to_jax_params(dict(getattr(got, net).named_parameters()))
+        assert sorted(mine) == sorted(flat)
+        for k, w in flat.items():
+            ulp = np.spacing(np.abs(w).astype(np.float32))
+            assert np.all(np.abs(mine[k] - w) <= 4 * ulp), (net, k)
+            if k.endswith("['bias']"):
+                assert not mine[k].any()
 
 
 @pytest.mark.parametrize("step", [0, 1, 2, 415000])

@@ -18,7 +18,11 @@ at the stage change and at the release step ([0,3) [3,6) [6,8) [8,11)
 - A STOP file present at start is honoured at the first boundary:
   checkpoint, file consumed, return.
 - The keyed sampler of the sample dumps draws the reference's notes.
-- The reference's mesh arguments are refused.
+- The reference's mesh arguments run: a one-rank mesh and either cache
+  layout equal the plain loop to the bit (the multi-rank loop is
+  ``test_torch_parallel.py``'s); ``use_mesh`` without a process group
+  raises; a resume refuses a newest checkpoint that only the reference
+  saved (orbax).
 """
 
 import json
@@ -231,12 +235,44 @@ def test_keyed_sampler_matches_the_reference(stage):
     assert snr > 40.0
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(use_mesh=True),
-    dict(config=_config(device_cache_layout="shard")),
-])
-def test_mesh_arguments_are_refused(dataset, kwargs):
-    config = kwargs.pop("config", _config())
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        train(config, None, num_steps=1, device_dataset=dataset,
-              device="cpu", **kwargs)
+@pytest.fixture(scope="module")
+def plain_run(dataset, tmp_path_factory):
+    workdir = str(tmp_path_factory.mktemp("plain"))
+    state = train(_config(), None, num_steps=STEPS, workdir=workdir,
+                  device_dataset=dataset, device="cpu")
+    return _bits(state), _logged(workdir)
+
+
+@pytest.mark.parametrize("layout,with_mesh", [
+    ("replicate", True), ("shard", True), ("shard", False)])
+def test_a_one_rank_mesh_and_the_cache_layouts_equal_the_plain_loop(
+        dataset, plain_run, tmp_path, layout, with_mesh):
+    """The reference's mesh arguments now run: a mesh of one rank (no
+    collective runs) and either cache layout, with or without it, end
+    bit-equal to the plain loop, as the reference's one-device mesh equals
+    its plain program (``tests/test_parallel.py``)."""
+    from gansynth_tpu_torch.parallel.sharding import Mesh
+
+    mesh = Mesh(rank=0, world=1, device=torch.device("cpu")) \
+        if with_mesh else None
+    got = train(_config(device_cache_layout=layout), None, num_steps=STEPS,
+                workdir=str(tmp_path), device_dataset=dataset,
+                mesh=mesh, device="cpu")
+    _assert_bit_equal(_bits(got), plain_run[0])
+    assert _logged(str(tmp_path)) == plain_run[1]
+
+
+def test_use_mesh_needs_a_process_group(dataset):
+    with pytest.raises(RuntimeError, match="process group"):
+        train(_config(), None, num_steps=1, device_dataset=dataset,
+              device="cpu", use_mesh=True)
+
+
+def test_resume_refuses_an_orbax_checkpoint(dataset, tmp_path):
+    """The newest step under ``checkpoints/`` is the reference's orbax
+    directory (no ``state.pt``): the loop refuses to go on from an older
+    state and names it."""
+    os.makedirs(tmp_path / "checkpoints" / "5" / "default")
+    with pytest.raises(ValueError, match="orbax"):
+        train(_config(), None, num_steps=1, workdir=str(tmp_path),
+              device_dataset=dataset, device="cpu")
