@@ -40,13 +40,17 @@ raises, so the exit code is non-zero):
    committed under ``tests/data``;
 7. serving: the synthesis service with the flagship weights behind its
    HTTP server, answering 4 concurrent requests, then shut down (K1's
-   launches are counted over this phase);
+   launches are counted over this phase); each rung replays its CUDA
+   graph, captured at the service's start;
 8. training: the flagship config (``Config.released()``,
    ``conv_kernel="pallas"``, ``dblock_kernel="pallas"``) at stage 6,
    batch 8, G and EMA from ``ema.npz``, D from a seeded init, Adam fresh:
-   one warm-up step, then 3 steps timed with CUDA events, with K2's and
-   K3's launches counted over the 3 steps; the metrics must be finite and
-   both networks must move;
+   one warm-up step (the step's CUDA graph is captured there), then 3
+   steps (replays) timed with CUDA events, with K2's and K3's launches
+   counted over the 3 steps, and one more step under ``torch.profiler``
+   whose K2 and K3 kernels, counted by name on the device, must equal
+   those counts a step; the metrics must be finite and both networks
+   must move;
 9. the same step in float32 from one state (so one drawn noise), once
    with the kernels and once with ``conv_kernel="xla"`` /
    ``dblock_kernel="xla"``, metric by metric;
@@ -54,7 +58,8 @@ raises, so the exit code is non-zero):
     in this process, on a run directory under ``build/smoke_train/``:
     the flagship config with the kernels on and unroll, checkpoint, log
     and sample cadence 10, seeded with a port checkpoint of the
-    flagship's state at step 415000 (stage 6, batch 8, bf16, released).
+    flagship's state at step 415000 (stage 6, batch 8, bf16, released);
+    each superstep replays the step's CUDA graph 10 times.
     Run A takes 20 steps with K1's, K2's and K3's launches counted (K1
     through the loop's sample dumps) and must write 2 checkpoints, an
     ``ema.npz`` at 415020, stage 6, and 3 wavs a dump; a repeat of run A
@@ -112,12 +117,44 @@ raises, so the exit code is non-zero):
     (``tests/test_torch_parallel.py``). Then the stage-6 step with and
     without the group in turns (``DP_TURNS``), the all-reduces a step
     makes timed with CUDA events, and peak memory; the float32 stage-6
-    step with ``remat=True`` against ``remat=False`` from one state:
+    step with ``remat=True`` against ``remat=False`` from one state
+    (these steps run eagerly, as the group's step does):
     metric by metric (phase 9's bar), peak memory, ms a step and the
     recompute's launches; and ``serve --data-parallel`` on the flagship
     (``cli.make_service``): each request alone equal to the in-process
     service's reply, the 4 concurrent requests over HTTP within the bf16
-    bound, K1 counted. One ``{"data_parallel": ...}`` line.
+    bound, K1 counted. One ``{"data_parallel": ...}`` line;
+15. CUDA graphs, run before phase 13's line, which lists their launches
+    (``graph_launches``, ``graph_launches_per_replay``): the flagship's
+    seeded sampler in-process and from phase 12's artifact at rungs 1, 4
+    and 16, each rung's graph against the same batch run eagerly (waves
+    equal to the bit; the capture's seconds; K1's launches a replay, 1;
+    host ms a batch, ``GRAPH_TURNS`` rounds in turns; at B=1 and B=16 the
+    device's busy ms, its idle share, the CUDA API launches a batch and
+    K1 counted by name on the device, once a batch in both forms, from
+    ``torch.profiler``); the artifact is loaded once and its eager form
+    runs the same loaded programs; then a ``GRAPH_STEPS``-step cached
+    superstep on the flagship's stage-6 state (bf16, K2 and K3 on,
+    ``GRAPH_NOTES`` notes cached) as CUDA-graph replays and eagerly from
+    one state: G, D and EMA at distance 0 and the metrics equal, K2's and
+    K3's launches a step 69 and 4 in both, ms a step in
+    ``GRAPH_TRAIN_TURNS`` rounds in turns of ``GRAPH_TURN_STEPS`` steps
+    and the host's enqueue ms; from a trace of ``GRAPH_TRACED`` steps of
+    each, the device's busy ms and idle share, the API launches a step
+    (``cudaLaunchKernel``, ``cudaGraphLaunch``) and K2 and K3 counted by
+    name on the device, 69 and 4 a step in both forms; peak memory and
+    the capture's seconds. Each kernel's launches over the phase are
+    counted for the graph and the eager form apart. One
+    ``{"cuda_graphs": ...}`` line.
+
+A replayed graph launches nothing through the wrappers: their counts add
+what the capture counted at each replay (``kernels.add_launch_counts``).
+Phases 8 and 15 hold those counts to the kernels that a
+``torch.profiler`` trace of the replays shows ran on the device, by name
+(``utils/profiling.py:PORT_KERNELS``): the step's graph (phase 8, and
+the superstep's in phase 15, which phase 10's loop replays) and the
+rungs' graphs at B=1 and 16 (phase 15, the in-process form that phase 7
+serves and the artifact that phase 12 serves).
 
 The script exits non-zero, printing no result, where CUDA is not
 available or the port is not beside it. It writes nothing outside
@@ -659,12 +696,14 @@ def flat_params(module):
 
 def train_steps(device):
     """The slice-2 path: 1 warm-up step, then TRAIN_STEPS timed steps with
-    K2's and K3's launches counted."""
+    K2's and K3's launches counted, then one traced step whose kernels,
+    counted by name, must agree."""
     import torch
 
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
     from gansynth_tpu_torch.kernels.dblock import fused_dblock
     from gansynth_tpu_torch.train.step import make_train_step
+    from gansynth_tpu_torch.utils.profiling import kernel_launches
 
     config = training_config()
     state, stage, alpha, waves, pitches = training_setup(config, device)
@@ -691,6 +730,15 @@ def train_steps(device):
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         raise AssertionError(f"the training step never launched {bad}")
+    # The counts above add a capture's counts at each replay; one more
+    # replay under torch.profiler counts the kernels that ran by name.
+    traced = kernel_launches(lambda: step_fn(state, waves, pitches, alpha))
+    counted = {"conv3x3": (launches["conv3x3_forward"]
+                           + launches["conv3x3_input_grad"]) / TRAIN_STEPS,
+               "dblock": launches["dblock"] / TRAIN_STEPS}
+    if any(traced[k] != v for k, v in counted.items()):
+        raise AssertionError(f"kernels a step: traced {traced}, counted "
+                             f"{counted}")
     for m in metrics:
         if not all(math.isfinite(v) for v in m.values()):
             raise AssertionError(f"non-finite metrics: {m}")
@@ -705,6 +753,7 @@ def train_steps(device):
            "launches": launches,
            "launches_per_step": {k: v / TRAIN_STEPS
                                  for k, v in launches.items()},
+           "launches_traced_per_step": {k: traced[k] for k in counted},
            "g_max_move": g_move, "d_max_move": d_move,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "metrics": metrics}
@@ -1505,12 +1554,15 @@ def export_phase(card, config):
     want = make_seeded_sampler(pallas, gen_k2, stage)(
         seeds, pitches).cpu().numpy()
     out["pallas_rel_l2"] = _rel(want, got)
+    # the batch's first call: a warm-up batch and the replay of the graph
+    # it captured, one K1 launch each
     if not (out["pallas_launches"]["conv3x3"] > 0
-            and out["pallas_launches"]["synthesis_spectrum"] == 1
+            and out["pallas_launches"]["synthesis_spectrum"] == 2
             and out["pallas_rel_l2"] <= out["check_bound"]):
         raise AssertionError(f"conv_kernel=pallas export: {out}")
     print(json.dumps({"export": out}), flush=True)
-    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    os.remove(art_k2)   # phase 15 serves sampler.gsx again, then removes it
+    shutil.rmtree(interp, ignore_errors=True)
     return out
 
 
@@ -1554,7 +1606,9 @@ def dp_step_timing(device, mesh):
 
     config = training_config()
     state, stage, alpha, waves, pitches = training_setup(config, device)
-    fns = {"no_group": make_train_step(config, stage),
+    # eager, as the group's step runs (a mesh's collectives stay out of
+    # CUDA graphs): the two differ by the group alone
+    fns = {"no_group": make_train_step(config, stage, graphs=False),
            "group": make_train_step(config, stage, mesh)}
     for fn in fns.values():
         fn(state, waves, pitches, alpha)
@@ -1611,7 +1665,7 @@ def remat_step(device):
         config = training_config("float32").with_overrides(
             {"model": {"remat": remat}})
         state, stage, alpha, waves, pitches = training_setup(config, device)
-        step = make_train_step(config, stage)
+        step = make_train_step(config, stage, graphs=False)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
@@ -1782,6 +1836,215 @@ def data_parallel(card, loop_ref, config, generator, stage):
     return out
 
 
+# Phase 15: the CUDA graphs of the serving rungs and of the training
+# superstep, each held against the same work run eagerly.
+GRAPH_RUNGS = (1, 4, 16)
+GRAPH_TURNS = 5         # in-turns rounds (eager, graph) of each served rung
+GRAPH_STEPS = 10        # the cached superstep held graph against eager
+GRAPH_TRAIN_TURNS = 3   # in-turns rounds of it, GRAPH_TURN_STEPS steps each
+GRAPH_TURN_STEPS = 5
+GRAPH_TRACED = 2        # steps of each form under torch.profiler
+GRAPH_NOTES = 64        # notes cached on the card for that superstep
+GRAPH_K2_PER_STEP = 69  # K2's launches a stage-6 step (phases 8 and 10)
+GRAPH_K3_PER_STEP = 4
+
+
+def _counting(fn, counts):
+    """``fn`` that adds the kernel launches each call makes
+    (``kernels.launch_counts``) to the dict ``counts``."""
+    from gansynth_tpu_torch.kernels import launch_counts
+
+    def call(*args):
+        before = launch_counts()
+        try:
+            return fn(*args)
+        finally:
+            for k, v in launch_counts().items():
+                counts[k] = counts.get(k, 0) + v - before[k]
+    return call
+
+
+def _graph_serving(eager, graphed, name):
+    """One served path at GRAPH_RUNGS: the graph's waves against the eager
+    batch's (to the bit), the capture's seconds, K1's launches a replay,
+    the host ms a batch in turns, and at rungs 1 and 16 a trace of each
+    form (device busy ms, idle share, API launches a batch, and K1 counted
+    by name on the device: once a batch in both forms). Returns the rows
+    and each form's K1 launches over the phase."""
+    import torch
+
+    from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
+
+    launched = {"eager": {}, "graph": {}}
+    eager = _counting(eager, launched["eager"])
+    graphed = _counting(graphed, launched["graph"])
+    out = {}
+    for b in GRAPH_RUNGS:
+        seeds = [(7919 * i + b) & 0x7FFFFFFF for i in range(b)]
+        pitches = [24 + (7 * i) % 61 for i in range(b)]
+        want = eager(seeds, pitches)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        graphed(seeds, pitches)      # the rung's warm-up and capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        before = launched["graph"]["synthesis_spectrum"]
+        got = graphed(seeds, pitches)
+        torch.cuda.synchronize()
+        k1 = launched["graph"]["synthesis_spectrum"] - before
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{name} B={b}: the graph's waves differ from the eager "
+                f"batch's by {float((got - want).abs().max()):.3e}")
+        if k1 != 1:
+            raise AssertionError(f"{name} B={b}: {k1} K1 launches a replay")
+        calls = {k: (lambda fn=fn: fn(seeds, pitches).cpu())
+                 for k, fn in (("eager", eager), ("graph", graphed))}
+        times = in_turns(calls, GRAPH_TURNS)
+        row = {"equal": True, "capture_s": capture_s,
+               "k1_launches_per_replay": k1}
+        for k, fn in calls.items():
+            host = times[k]["host_ms"]
+            row[k] = {"host_ms": spread(host)}
+            if b in (1, 16):
+                row[k].update(busy(fn, 1, statistics.median(host), 3))
+                traced = row[k]["kernel_launches"]["synthesis_spectrum"]
+                if traced != 1:
+                    raise AssertionError(f"{name} B={b} {k}: K1 ran "
+                                         f"{traced} times a batch")
+        out[str(b)] = row
+    return out, {k: v["synthesis_spectrum"] for k, v in launched.items()}
+
+
+def _graph_training(device):
+    """GRAPH_STEPS steps of the cached superstep on the flagship's stage-6
+    state (bf16, K2 and K3 on) graph against eager from one state; see
+    phase 15 in the module's docstring. Returns the results and each
+    form's K2 and K3 launches over the phase."""
+    import copy
+
+    import torch
+
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
+
+    config = training_config()
+    state, stage, alpha, _, _ = training_setup(config, device)
+    m = config.model
+    waves, pitches = note_batch(GRAPH_NOTES, m.pitch_min, m.pitch_max)
+    all_waves = torch.from_numpy(waves).to(device)
+    all_pitches = torch.from_numpy(pitches.astype("int32")).to(device)
+    states = {"eager": copy.deepcopy(state), "graph": state}
+    supersteps = {"eager": make_cached_superstep(config, stage, GRAPH_NOTES,
+                                                 graphs=False),
+                  "graph": make_cached_superstep(config, stage, GRAPH_NOTES)}
+    launched = {"eager": {}, "graph": {}}
+    steps = {kind: _counting(fn, launched[kind])
+             for kind, fn in supersteps.items()}
+
+    def run(kind, k=GRAPH_STEPS):
+        return steps[kind](states[kind], all_waves, all_pitches,
+                           [alpha] * k)[1]
+
+    out, metrics, peak = {}, {}, {}
+    for kind in ("eager", "graph"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        metrics[kind] = {k: float(v) for k, v in run(kind).items()}
+        torch.cuda.synchronize()
+        out[f"{kind}_first_call_s"] = time.perf_counter() - t
+        peak[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["capture_s"] = supersteps["graph"].program.graph.capture_seconds
+    distance = {net: float((flat_params(getattr(states["graph"], net))
+                            - flat_params(getattr(states["eager"], net))
+                            ).abs().max()) for net in ("g", "d", "ema")}
+    out["distance_max_abs"] = distance
+    out["metrics"] = metrics["graph"]
+    if any(distance.values()) or metrics["graph"] != metrics["eager"]:
+        raise AssertionError(f"graph vs eager superstep: distance "
+                             f"{distance}, metrics {metrics}")
+
+    # ms a step in turns (GRAPH_TURN_STEPS steps a call); each form's
+    # first timed call also counts its kernel launches a step
+    per_step = {}
+
+    def counted(kind):
+        before = _kernel_counts()
+        run(kind, GRAPH_TURN_STEPS)
+        per_step.setdefault(kind, {k: (v - before[k]) / GRAPH_TURN_STEPS
+                                   for k, v in _kernel_counts().items()})
+
+    times = in_turns({k: (lambda k=k: counted(k)) for k in steps},
+                     GRAPH_TRAIN_TURNS, GRAPH_TURN_STEPS)
+    launches = per_step["graph"]
+    k2 = launches["conv3x3_forward"] + launches["conv3x3_input_grad"]
+    if (per_step["graph"] != per_step["eager"] or k2 != GRAPH_K2_PER_STEP
+            or launches["dblock"] != GRAPH_K3_PER_STEP):
+        raise AssertionError(f"kernel launches a step: {per_step}")
+    out["launches_per_step"] = launches
+    want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP}
+    for kind in ("eager", "graph"):
+        ms = times[kind]["ms"]
+        out[kind] = {
+            "ms_per_step": spread(ms),
+            "host_enqueue_ms_per_step": statistics.median(
+                times[kind]["host_ms"]),
+            **busy(lambda: run(kind, GRAPH_TRACED), GRAPH_TRACED,
+                   statistics.median(ms)),
+            "peak_mem_gib": peak[kind]}
+        # the kernels that ran on the device, counted by name in the trace
+        traced = out[kind]["kernel_launches"]
+        if any(traced[k] != v for k, v in want.items()):
+            raise AssertionError(f"{kind} superstep: kernels a step on the "
+                                 f"device {traced}, want {want}")
+    del states, steps, supersteps
+    torch.cuda.empty_cache()
+    return out, launched
+
+
+def cuda_graphs_phase(card, config, generator, stage, device):
+    """Phase 15: the served rungs (in-process and from phase 12's
+    artifact) and the training superstep, each CUDA graph against the
+    same work run eagerly; K1 counted over the serving, K2 and K3 over the
+    training, each form apart. One ``{"cuda_graphs": ...}`` line."""
+    from gansynth_tpu_torch.synth.export import (
+        ExportedSampler,
+        load_sampler_artifact,
+    )
+    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+
+    art = os.path.join(EXPORT_DIR, "sampler.gsx")
+    out = {"card": card}
+    t = time.perf_counter()
+    exported = load_sampler_artifact(art, "cuda")
+    # the eager form runs the same loaded programs
+    exported_eager = ExportedSampler(exported.programs, exported.meta,
+                                     exported.device, graphs=False)
+    serving, k1 = {}, {}
+    for path, eager, graphed in (
+            ("in_process",
+             make_seeded_sampler(config, generator, stage, graphs=False),
+             make_seeded_sampler(config, generator, stage)),
+            ("exported", exported_eager, exported)):
+        serving[path], k1[path] = _graph_serving(eager, graphed, path)
+    out["serving"] = serving
+    out["k1_launches"] = {kind: sum(v[kind] for v in k1.values())
+                          for kind in ("eager", "graph")}
+    out["serving_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    out["training"], launched = _graph_training(device)
+    out["training_s"] = time.perf_counter() - t
+    out["k2_launches"] = {
+        kind: c["conv3x3_forward"] + c["conv3x3_input_grad"]
+        for kind, c in launched.items()}
+    out["k3_launches"] = {kind: c["dblock"] for kind, c in launched.items()}
+    print(json.dumps({"cuda_graphs": out}), flush=True)
+    shutil.rmtree(EXPORT_DIR, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1905,7 +2168,8 @@ def main() -> int:
     phase("train", t, f"stage {train['stage']} alpha {train['alpha']} batch "
           f"{train['batch']} {train['compute_dtype']}: {TRAIN_STEPS} steps, "
           f"mean {train['mean_step_ms']:.1f} ms/step; launches per step "
-          f"{train['launches_per_step']} ({card})")
+          f"{train['launches_per_step']}, traced on the device "
+          f"{train['launches_traced_per_step']} ({card})")
 
     t = time.perf_counter()
     cmp = kernels_vs_plain_step(device)
@@ -1998,6 +2262,38 @@ def main() -> int:
           f"{dp['serve']['launches']}, served vs in-process worst "
           f"{max(dp['serve']['served_rel_l2']):.3g} ({card})")
 
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    generator, _, stage = load_ema_generator(
+        os.path.join(FLAGSHIP, "ema.npz"), config.model, device)
+    cg = cuda_graphs_phase(card, config, generator, stage, device)
+    del generator
+    sv, tr = cg["serving"], cg["training"]
+    phase("CUDA graphs", t, "graph vs eager, host ms median in turns: "
+          + "; ".join(
+              f"{path} " + ", ".join(
+                  f"B={b} {row['graph']['host_ms']['median']:.3f}/"
+                  f"{row['eager']['host_ms']['median']:.3f}"
+                  for b, row in rows.items())
+              for path, rows in sv.items())
+          + "; idle share graph/eager in-process B=1 "
+          f"{sv['in_process']['1']['graph']['idle_share']:.3f}/"
+          f"{sv['in_process']['1']['eager']['idle_share']:.3f}, B=16 "
+          f"{sv['in_process']['16']['graph']['idle_share']:.3f}/"
+          f"{sv['in_process']['16']['eager']['idle_share']:.3f}; waves "
+          f"equal at every rung; training {GRAPH_STEPS}-step superstep "
+          f"distance {tr['distance_max_abs']}, ms/step median "
+          f"{tr['graph']['ms_per_step']['median']:.2f} graph / "
+          f"{tr['eager']['ms_per_step']['median']:.2f} eager, idle "
+          f"{tr['graph']['idle_share']:.3f}/{tr['eager']['idle_share']:.3f},"
+          f" API launches a step graph {tr['graph']['api_launches']}"
+          f" eager {tr['eager']['api_launches']}; capture "
+          f"{tr['capture_s']:.2f}s; peak {tr['graph']['peak_mem_gib']:.2f}/"
+          f"{tr['eager']['peak_mem_gib']:.2f} GiB; launches a step "
+          f"{tr['launches_per_step']}, on the device (traced) graph "
+          f"{tr['graph']['kernel_launches']} eager "
+          f"{tr['eager']['kernel_launches']} ({card})")
+
     def dp_count(name):
         return sum(launches[name] for launches in dp["launches"].values())
 
@@ -2014,6 +2310,15 @@ def main() -> int:
         "offline_launches": offline["launches_total"]["synthesis_spectrum"],
         "export_launches": exp["launches"],
         "dp_launches": dp["serve"]["launches"],
+        "graph_launches": cg["k1_launches"]["graph"],
+        "graph_eager_launches": cg["k1_launches"]["eager"],
+        "graph_launches_per_replay": max(
+            row["k1_launches_per_replay"] for rows in sv.values()
+            for row in rows.values()),
+        "graph_launches_traced_per_replay": max(
+            row["graph"]["kernel_launches"]["synthesis_spectrum"]
+            for rows in sv.values() for row in rows.values()
+            if "kernel_launches" in row["graph"]),
         "max_abs_err": k1["max_abs_err"],
         **{k: k1[k] for k in ("ms", "graph_ms", "plain_ms", "plain_graph_ms",
                               "bound_ms", "bound_by", "fraction_of_bound",
@@ -2048,6 +2353,15 @@ def main() -> int:
         + rm["remat"]["launches"]["conv3x3_input_grad"],
         "remat_recompute_launches":
             rm["remat"]["launches"]["conv3x3_recompute"],
+        "launches_traced_per_step":
+            train["launches_traced_per_step"]["conv3x3"],
+        "graph_launches": cg["k2_launches"]["graph"],
+        "graph_eager_launches": cg["k2_launches"]["eager"],
+        "graph_launches_per_replay":
+            tr["launches_per_step"]["conv3x3_forward"]
+            + tr["launches_per_step"]["conv3x3_input_grad"],
+        "graph_launches_traced_per_replay":
+            tr["graph"]["kernel_launches"]["conv3x3"],
         "measured_only": k2["measured_only"],
         "resources": resources["conv3x3"],
     }, {
@@ -2061,6 +2375,13 @@ def main() -> int:
         "remat_launches": rm["remat"]["launches"]["dblock"],
         "remat_recompute_launches":
             rm["remat"]["launches"]["dblock_recompute"],
+        "launches_traced_per_step":
+            train["launches_traced_per_step"]["dblock"],
+        "graph_launches": cg["k3_launches"]["graph"],
+        "graph_eager_launches": cg["k3_launches"]["eager"],
+        "graph_launches_per_replay": tr["launches_per_step"]["dblock"],
+        "graph_launches_traced_per_replay":
+            tr["graph"]["kernel_launches"]["dblock"],
         "max_abs_err": k3["max_abs_err"],
         "max_abs_err_f32": k3["max_abs_err_f32"],
         "shape": k3["shape"],

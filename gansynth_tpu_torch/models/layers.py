@@ -33,7 +33,9 @@ def remat_call(module: nn.Module, *args) -> torch.Tensor:
     again when the backward pass needs its activations, which also holds
     through the gradient penalty's double backward. The kernels' launches
     during that second run are counted apart
-    (``kernels.recomputing``)."""
+    (``kernels.recomputing``). The models draw no random numbers, so no
+    RNG state is saved for the rerun (reading the CUDA generator's state
+    is not allowed inside a CUDA graph capture)."""
     from gansynth_tpu_torch.kernels import recomputing
 
     calls = []
@@ -45,7 +47,8 @@ def remat_call(module: nn.Module, *args) -> torch.Tensor:
         with recomputing():
             return module(*a)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
 
 
 def he_scale(fan_in: int, gain: float) -> float:

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from gansynth_tpu_torch.ops.mel import linear_to_mel_matrix
+from gansynth_tpu_torch.ops.spectral import constant_cache
 from gansynth_tpu_torch.ops.windows import hann_window
 from gansynth_tpu_torch.utils.config import AudioConfig, Config, scale
 
@@ -105,13 +106,21 @@ def harmonic_pitch_templates(config: Config, stage: int) -> np.ndarray:
     )
 
 
+@constant_cache
+def _device_templates(config: Config, stage: int,
+                      device: torch.device) -> torch.Tensor:
+    """:func:`harmonic_pitch_templates` on ``device``, copied once (a copy
+    per step would stall the host, and cannot be captured in a CUDA
+    graph)."""
+    return torch.from_numpy(harmonic_pitch_templates(config, stage)).to(device)
+
+
 def image_pitch_logits(image: torch.Tensor, stage: int, config: Config,
                        tau: float = 40.0) -> torch.Tensor:
     """Differentiable pitch logits [B, num_pitches] from an image [B, H, W,
     2] at ``stage`` (channel 0 the [-1, 1]-scaled log-mel-mag^2), in
     float32 whatever the image's type."""
-    templates = torch.from_numpy(
-        harmonic_pitch_templates(config, stage)).to(image.device)
+    templates = _device_templates(config, stage, image.device)
     logmelmag2 = scale(image[..., 0].float(), -1.0, 1.0,
                        config.audio.logmel_min, config.audio.logmel_max)
     spec = torch.mean(torch.exp(0.5 * logmelmag2), dim=-2)

@@ -6,12 +6,15 @@
 - ``GET /healthz`` -> liveness, model info and the coalescing counters.
 
 The sampler is warmed at startup for a ladder of batch sizes (1, 4, ...,
-max_batch). Concurrent requests coalesce: a daemon batcher thread drains
-whatever requests wait while the device is busy, packs their notes into
-the smallest rung that fits and runs one generator + synthesis batch for
-all of them. Note i of a request with seed s takes the latent of seed
-``(s * 1000003 + i) & 0x7FFFFFFF``, so its audio does not depend on what
-it was batched with (up to the last float bits between rungs).
+max_batch): on a card the first call of a rung captures its CUDA graph
+(``utils/graphs.py``), as the reference compiles one program per rung,
+and every later batch of that rung replays it. Concurrent requests
+coalesce: a daemon batcher thread drains whatever requests wait while
+the device is busy, packs their notes into the smallest rung that fits
+and runs one generator + synthesis batch for all of them. Note i of a
+request with seed s takes the latent of seed ``(s * 1000003 + i) &
+0x7FFFFFFF``, so its audio does not depend on what it was batched with
+(up to the last float bits between rungs).
 
 A full queue answers 429, a request not served in time 504 (and is
 abandoned, never served late).
@@ -146,9 +149,9 @@ class SynthesisService:
 
         self.warm_latency_s = {}
         for b in self.batch_ladder:
-            self._run_device([0] * b, [60] * b)     # first call: builds, tunes
+            self._run_device([0] * b, [60] * b)     # first call: builds, captures
             t0 = time.perf_counter()
-            self._run_device([0] * b, [60] * b)     # warm (host end to end)
+            self._run_device([0] * b, [60] * b)     # a replay, host end to end
             self.warm_latency_s[b] = round(time.perf_counter() - t0, 4)
 
         self._queue = collections.deque()

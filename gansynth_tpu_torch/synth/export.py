@@ -19,6 +19,11 @@ Design points:
   alone. The program runs the in-process sampler's own modules, so at one
   batch on one device its waves equal the in-process sampler's to the bit
   (on the CPU and on an H100, ``chip_smoke.py``'s export phase).
+- **A graph per rung on a card**: a loaded artifact replays one CUDA
+  graph of its program per batch size (``utils/graphs.py``), so the
+  program's in-graph threefry and its metadata asserts run once, at the
+  capture, and a request pays one graph launch; on the CPU (or with
+  ``graphs=False``) the program runs eagerly.
 - **Device-neutral**: the program runs on the CPU or a card;
   :func:`load_sampler_artifact` moves it to the device asked for
   (``torch.export.passes.move_to_device_pass``). The header's
@@ -78,7 +83,12 @@ from torch.export.passes import move_to_device_pass
 # Registers the operators an exported program calls.
 import gansynth_tpu_torch.kernels.conv  # noqa: F401
 import gansynth_tpu_torch.kernels.synthesis  # noqa: F401
-from gansynth_tpu_torch.synth.sampler import LatentProgram, SeededProgram
+from gansynth_tpu_torch.synth.sampler import (
+    LatentProgram,
+    SeededProgram,
+    seed_tensors,
+)
+from gansynth_tpu_torch.utils import graphs as cuda_graphs
 from gansynth_tpu_torch.utils.config import Config
 from gansynth_tpu_torch.utils.device import resolve_device
 
@@ -196,10 +206,14 @@ class ExportedSampler:
     ``seeds`` and ``pitch`` are int32 sequences, arrays or tensors of one
     length B (any B >= 1 when the batch is symbolic). ``meta`` is the JSON
     header. :meth:`latent` renders explicit latents and soft pitch labels
-    when the artifact ships the latent program."""
+    when the artifact ships the latent program. On a card each program
+    replays one CUDA graph per batch size (:attr:`graphed`, by program
+    name) unless ``graphs=False``. :attr:`programs` holds the loaded
+    programs (``ExportedProgram``) by name."""
 
     def __init__(self, programs: Dict[str, ExportedProgram], meta: dict,
-                 device: torch.device):
+                 device: torch.device, graphs: bool = True):
+        self.programs = programs
         self._seeded = programs["seeded"].module()
         self._latent = (programs["latent"].module()
                         if "latent" in programs else None)
@@ -209,6 +223,12 @@ class ExportedSampler:
         self.step = int(meta["step"])
         self.stage = int(meta["stage"])
         self.sample_rate = int(meta["sample_rate"])
+        self._calls = {name: cuda_graphs.on_device(fn, device, graphs)
+                       for name, fn in (("seeded", self._seeded),
+                                        ("latent", self._latent))
+                       if fn is not None}
+        self.graphed = {name: call for name, call in self._calls.items()
+                        if isinstance(call, cuda_graphs.GraphedCall)}
 
     @property
     def has_latent(self) -> bool:
@@ -218,6 +238,10 @@ class ExportedSampler:
         """The effective ``Config`` recorded in the header."""
         return Config().with_overrides(self.meta["config"])
 
+    def _run(self, name: str, *args: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._calls[name](*args)
+
     def latent(self, z, labels) -> torch.Tensor:
         """``(z [B, D] f32, labels [B, num_pitches] f32) -> wave [B,
         64000]``; raises ValueError when the artifact has no latent
@@ -225,27 +249,25 @@ class ExportedSampler:
         if self._latent is None:
             raise ValueError("artifact has no latent program (re-export "
                              "with --with-latent to enable interpolation)")
-        z = torch.as_tensor(z, dtype=torch.float32, device=self.device)
-        labels = torch.as_tensor(labels, dtype=torch.float32,
-                                 device=self.device)
+        z = torch.as_tensor(z, dtype=torch.float32)
+        labels = torch.as_tensor(labels, dtype=torch.float32)
         if z.ndim != 2 or labels.ndim != 2 or z.shape[0] != labels.shape[0]:
             raise ValueError(
                 f"z {tuple(z.shape)} and labels {tuple(labels.shape)} must "
                 "be rank-2 [B, D] / [B, num_pitches] with matching B")
-        with torch.inference_mode():
-            return self._latent(z, labels)
+        return self._run("latent", z, labels)
 
     def __call__(self, seeds, pitch) -> torch.Tensor:
-        seeds = torch.as_tensor(np.asarray(seeds), dtype=torch.int32,
-                                device=self.device)
-        pitch = torch.as_tensor(np.asarray(pitch), dtype=torch.int32,
-                                device=self.device)
+        if torch.is_tensor(seeds):
+            seeds = seeds.cpu().numpy()
+        if torch.is_tensor(pitch):
+            pitch = pitch.cpu().numpy()
+        seeds, pitch = np.asarray(seeds), np.asarray(pitch)
         if seeds.ndim != 1 or seeds.shape != pitch.shape:
             raise ValueError(
                 f"seeds {tuple(seeds.shape)} and pitch {tuple(pitch.shape)} "
                 "must match and be rank-1 [B]")
-        with torch.inference_mode():
-            return self._seeded(seeds, pitch)
+        return self._run("seeded", *seed_tensors(seeds, pitch))
 
 
 def _read(path: str):
@@ -292,10 +314,12 @@ def _read(path: str):
     return meta, programs
 
 
-def load_sampler_artifact(path: str, device=None) -> ExportedSampler:
+def load_sampler_artifact(path: str, device=None,
+                          graphs: bool = True) -> ExportedSampler:
     """Load a ``.gsx`` file written by :func:`save_sampler_artifact` onto
     ``device`` (default ``cuda``, which raises without a card; pass
-    ``"cpu"`` to run on the CPU)."""
+    ``"cpu"`` to run on the CPU). On a card its programs replay CUDA
+    graphs unless ``graphs=False``."""
     device = resolve_device(device)
     meta, blobs = _read(path)
     if device.type not in meta["platforms"]:
@@ -306,4 +330,4 @@ def load_sampler_artifact(path: str, device=None) -> ExportedSampler:
                                   device)
         for name, blob in blobs.items()
     }
-    return ExportedSampler(programs, meta, device)
+    return ExportedSampler(programs, meta, device, graphs)

@@ -7,7 +7,13 @@
     -> image_to_wave (the synthesis kernel on CUDA) -> 64000-sample wave
 
 Each ``make_*`` returns a plain function that runs under
-``torch.inference_mode`` on the generator's device. :class:`Sampler` holds
+``torch.inference_mode`` on the generator's device. On a card the seeded
+samplers (the serving path) replay one CUDA graph per batch size
+(``utils/graphs.py``; the reference's ``jax.jit`` per rung): the latents
+drawn in the graph by ``seeded_latents_torch``, the one-hot, the
+generator, K1 and the iSTFT, with the seeds and pitches copied in and the
+wave out; on the CPU, or with ``graphs=False``, the same program runs
+eagerly. The keyed samplers stay eager. :class:`Sampler` holds
 a restored EMA generator with its config and stage, as the reference's
 does, for ``generate`` and ``evaluate``. :class:`SeededProgram` and
 :class:`LatentProgram` are the same bodies as modules that ``torch.export``
@@ -21,16 +27,13 @@ from __future__ import annotations
 import copy
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from gansynth_tpu_torch.models.layers import upsample_nearest
 from gansynth_tpu_torch.ops.spectral import image_to_wave
-from gansynth_tpu_torch.synth.random import (
-    Key,
-    normal,
-    seeded_latents,
-    seeded_latents_torch,
-)
+from gansynth_tpu_torch.synth.random import Key, normal, seeded_latents_torch
+from gansynth_tpu_torch.utils import graphs as cuda_graphs
 from gansynth_tpu_torch.utils.config import Config
 
 
@@ -125,26 +128,50 @@ def make_sampler(config: Config, generator: torch.nn.Module,
     return sample
 
 
+def seed_tensors(seeds: Sequence[int], pitches: Sequence[int]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host int32 ``(seeds [B], pitch [B])``, a seeded program's inputs.
+    A seed is a 32-bit integer, as ``seed_to_key`` takes it; its int32
+    form carries the same low word, which is all the key holds."""
+    s = np.asarray(list(seeds), dtype=np.int64).reshape(-1)
+    if s.size and not ((s >= -(1 << 31)).all() and (s < (1 << 32)).all()):
+        raise ValueError(f"seeds {s.tolist()} are not all 32-bit integers")
+    p = np.asarray(list(pitches), dtype=np.int64).reshape(-1)
+    if s.shape != p.shape:
+        raise ValueError(f"{s.size} seeds and {p.size} pitches")
+    return (torch.from_numpy(s.astype(np.uint32).view(np.int32)),
+            torch.from_numpy(p.astype(np.int32)))
+
+
+def _seeded_call(config: Config, generator: torch.nn.Module, stage: int,
+                 graphs: bool):
+    """:class:`SeededProgram` on the generator's device: one CUDA graph a
+    batch size on a card (unless ``graphs`` is False), else eager."""
+    return cuda_graphs.on_device(SeededProgram(config, generator, stage),
+                                 _device_of(generator), graphs)
+
+
 def make_seeded_sampler(config: Config, generator: torch.nn.Module,
-                        stage: Optional[int] = None):
+                        stage: Optional[int] = None, graphs: bool = True):
     """``sample(seeds [B], pitches [B]) -> wave [B, 64000]``.
 
     Note i's latent is ``jax.random.normal(jax.random.key(seeds[i]),
-    (latent_dim,))``, drawn by the port's threefry, so a note's audio is a
-    function of (weights, seed, pitch) alone, whatever batch it rides in.
+    (latent_dim,))``, drawn by the port's threefry in torch ops
+    (:class:`SeededProgram`), so a note's audio is a function of (weights,
+    seed, pitch) alone, whatever batch it rides in. On a card each batch
+    size replays its own CUDA graph of the program (``sample.graphed``);
+    on the CPU, or with ``graphs=False``, the program runs eagerly
+    (``sample.graphed`` is None).
     """
     stage = config.model.num_stages - 1 if stage is None else stage
-    device = _device_of(generator)
+    call = _seeded_call(config, generator, stage, graphs)
 
     @torch.inference_mode()
     def sample(seeds: Sequence[int], pitches: Sequence[int]) -> torch.Tensor:
-        z = torch.from_numpy(
-            seeded_latents(seeds, config.model.latent_dim)
-        ).to(device)
-        pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
-        return _render(config, generator, stage, z,
-                       pitch_to_onehot(pitch, config))[0]
+        return call(*seed_tensors(seeds, pitches))
 
+    sample.graphed = (call if isinstance(call, cuda_graphs.GraphedCall)
+                      else None)
     return sample
 
 
@@ -155,22 +182,16 @@ def _replicas(generator: torch.nn.Module, devices) -> list:
             for d in devices]
 
 
-def _split_render(config: Config, replicas, stage: int, z: torch.Tensor,
-                  pitch: torch.Tensor) -> torch.Tensor:
-    """The batch split over the replicas in order: every replica's share
-    is launched before any result is read, then the waves come back to
-    the host in batch order."""
-    n = len(replicas)
-    if z.shape[0] % n:
-        raise ValueError(f"batch {z.shape[0]} must divide the {n} devices")
-    per = z.shape[0] // n
-    shares = []
-    for i, g in enumerate(replicas):   # the inputs, then every launch
-        dev = _device_of(g)
-        shares.append((g, z[i * per:(i + 1) * per].to(dev, non_blocking=True),
-                       pitch[i * per:(i + 1) * per].to(dev)))
-    waves = [_render(config, g, stage, zi, pitch_to_onehot(pi, config))[0]
-             for g, zi, pi in shares]
+def _split_render(calls, *inputs: torch.Tensor) -> torch.Tensor:
+    """The batch's ``inputs`` split over the replicas' ``calls`` in order:
+    every replica's share is launched before any result is read, then the
+    waves come back to the host in batch order."""
+    n, batch = len(calls), inputs[0].shape[0]
+    if batch % n:
+        raise ValueError(f"batch {batch} must divide the {n} devices")
+    per = batch // n
+    waves = [call(*(x[i * per:(i + 1) * per] for x in inputs))
+             for i, call in enumerate(calls)]
     return torch.cat([w.cpu() for w in waves])
 
 
@@ -180,22 +201,26 @@ def make_dp_sampler(config: Config, generator: torch.nn.Module, devices,
     make_dp_sampler``): ``sample(key, pitches [B]) -> wave [B, 64000]`` on
     the host, the batch's latents drawn from ``key`` as
     :func:`make_sampler` draws them and the batch split over one replica
-    of ``generator`` per device. B must divide the device count."""
+    of ``generator`` per device (:class:`LatentProgram`, eager). B must
+    divide the device count."""
     stage = config.model.num_stages - 1 if stage is None else stage
-    replicas = _replicas(generator, devices)
+    calls = [cuda_graphs.on_device(LatentProgram(config, g, stage),
+                                   _device_of(g), graphs=False)
+             for g in _replicas(generator, devices)]
 
     @torch.inference_mode()
     def sample(key: Key, pitches: Sequence[int]) -> torch.Tensor:
         pitch = torch.as_tensor(list(pitches), dtype=torch.long)
         z = torch.from_numpy(normal(key, (len(pitch),
                                           config.model.latent_dim)))
-        return _split_render(config, replicas, stage, z, pitch)
+        return _split_render(calls, z, pitch_to_onehot(pitch, config))
 
     return sample
 
 
 def make_dp_seeded_sampler(config: Config, generator: torch.nn.Module,
-                           devices, stage: Optional[int] = None):
+                           devices, stage: Optional[int] = None,
+                           graphs: bool = True):
     """The seeded serving sampler over ``devices``
     (``gansynth_tpu/synth/sampler.py:make_dp_seeded_sampler``):
     ``sample(seeds [B], pitches [B]) -> wave [B, 64000]`` on the host.
@@ -205,16 +230,18 @@ def make_dp_seeded_sampler(config: Config, generator: torch.nn.Module,
     device, splits the batch over them and launches every share before it
     reads any. B must divide the device count. A device's share renders
     what :func:`make_seeded_sampler` renders for the same notes at that
-    share's batch size."""
+    share's batch size: on cards, each replica replays its own CUDA graph
+    of its share (``sample.graphed``, one per replica on a card)."""
     stage = config.model.num_stages - 1 if stage is None else stage
-    replicas = _replicas(generator, devices)
+    calls = [_seeded_call(config, g, stage, graphs)
+             for g in _replicas(generator, devices)]
 
     @torch.inference_mode()
     def sample(seeds: Sequence[int], pitches: Sequence[int]) -> torch.Tensor:
-        z = torch.from_numpy(seeded_latents(seeds, config.model.latent_dim))
-        pitch = torch.as_tensor(list(pitches), dtype=torch.long)
-        return _split_render(config, replicas, stage, z, pitch)
+        return _split_render(calls, *seed_tensors(seeds, pitches))
 
+    sample.graphed = [c for c in calls
+                      if isinstance(c, cuda_graphs.GraphedCall)]
     return sample
 
 

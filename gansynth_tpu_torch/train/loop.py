@@ -2,11 +2,16 @@
 
 Python drives the schedule and the data; each chunk of up to
 ``config.train.unroll`` steps is one superstep (``train/step.py``), whose
-inner steps the host launches without waiting for the device. Step
-functions are cached per ``(stage, fused, released)``: an
-anchor-release schedule splits a stage into the pre- and post-release
-loss programs, and a chunk never crosses a stage change or the release
-step. Resume restores the full state and recomputes the stage, alpha and
+inner steps the host launches without waiting for the device: on one
+card, K replays of the step's CUDA graph (the reference's ``lax.scan``
+program). The step function, and with it its graph, is kept for the
+current ``(stage, fused, released)`` only: an anchor-release schedule
+splits a stage into the pre- and post-release loss programs, a chunk
+never crosses a stage change or the release step, and the old graph is
+dropped (its memory freed) when the key changes. A graph is captured at
+the first chunk after the state is made or restored, since it holds the
+parameters' addresses. Checkpoints, ``ema.npz``, the sample dumps and the
+STOP check run between supersteps, eagerly. Resume restores the full state and recomputes the stage, alpha and
 release phase from the restored step, so a restart lands where it left
 off.
 
@@ -238,6 +243,7 @@ def train(
     def get_step_fn(stage: int, fused: bool, released: bool):
         key = (stage, fused, released)
         if key not in step_fns:
+            step_fns.clear()   # the old graph's shapes or losses are gone
             cfg = released_config if released else config
             if device_dataset is not None:
                 step_fns[key] = make_cached_superstep(cfg, stage,

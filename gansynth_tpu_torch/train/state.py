@@ -33,7 +33,15 @@ from gansynth_tpu_torch.utils.config import Config
 class Adam(torch.optim.Optimizer):
     """optax.adam: ``mu = b1 mu + (1 - b1) g``, ``nu = b2 nu + (1 - b2)
     g^2``, ``p -= lr mu_hat / (sqrt(nu_hat) + eps)`` with the bias
-    corrections of one shared ``count``, taken in float32 as optax does."""
+    corrections of one shared ``count``, taken in float32 as optax does.
+
+    The bias corrections are computed on the host from the count
+    (:meth:`bias_corrections`) and reach :meth:`update` as 0-d tensors on
+    the parameters' device, so that a CUDA graph of the train step reads
+    each step's own (a Python float would be frozen at the capture). The
+    train step stages them and advances ``count`` itself
+    (``train/step.py``); :meth:`step` is the same update for a caller
+    that holds gradients in ``.grad``."""
 
     def __init__(self, params: Iterable[torch.Tensor], lr: float,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -53,26 +61,47 @@ class Adam(torch.optim.Optimizer):
         self.count = int(state_dict.pop("count"))
         super().load_state_dict(state_dict)
 
+    def bias_corrections(self, count: int) -> Tuple[float, float]:
+        """``(1 - b1^count, 1 - b2^count)`` in float32, as optax takes
+        them at its ``count``-th update."""
+        group = self.param_groups[0]
+        return (float(1 - np.float32(group["b1"]) ** count),
+                float(1 - np.float32(group["b2"]) ** count))
+
+    def init_moments(self) -> None:
+        """Zero moments for every parameter that has none yet (a fresh or
+        restored-at-0 optimizer), as the first update would make them."""
+        for group in self.param_groups:
+            for p in group["params"]:
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+
+    @torch.no_grad()
+    def update(self, bc1: torch.Tensor, bc2: torch.Tensor) -> None:
+        """One update with the bias corrections ``bc1``, ``bc2`` (0-d
+        float32 tensors on the parameters' device); ``count`` is left to
+        the caller."""
+        self.init_moments()
+        for group in self.param_groups:
+            lr, b1, b2, eps = (group[k] for k in ("lr", "b1", "b2", "eps"))
+            for p in group["params"]:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                mu, nu = self.state[p]["mu"], self.state[p]["nu"]
+                mu.mul_(b1).add_(g * (1.0 - b1))
+                nu.mul_(b2).add_(g * g * (1.0 - b2))
+                update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
+                p.add_(update * -lr)
+
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("Adam.step takes no closure")
         self.count += 1
-        for group in self.param_groups:
-            lr, b1, b2, eps = (group[k] for k in ("lr", "b1", "b2", "eps"))
-            bc1 = float(1 - np.float32(b1) ** self.count)
-            bc2 = float(1 - np.float32(b2) ** self.count)
-            for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
-                mu, nu = st["mu"], st["nu"]
-                mu.mul_(b1).add_(g * (1.0 - b1))
-                nu.mul_(b2).add_(g * g * (1.0 - b2))
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + eps)
-                p.add_(update * -lr)
+        device = self.param_groups[0]["params"][0].device
+        self.update(*(torch.tensor(v, dtype=torch.float32, device=device)
+                      for v in self.bias_corrections(self.count)))
 
 
 def make_optimizer(config: Config, params: Iterable[torch.Tensor]) -> Adam:

@@ -16,13 +16,29 @@ replays it. A caller may still pass any of the three explicitly; the
 parity tests do.
 
 A superstep (:func:`make_superstep`, :func:`make_cached_superstep`) is K
-steps in one call, a Python loop over the step: the reference fuses them
-into one ``lax.scan`` program, the port launches them one after another
-and never waits for the device inside the loop (the metrics stay on the
-device; the caller reads them at its log crossings). The cached form
-gathers each step's batch from a dataset held on the device, at indices
-drawn on the host from the state's key and step
-(:func:`cached_batch_indices`, the reference's stream bit for bit).
+steps in one call, the reference's ``lax.scan`` over the step
+(``unroll``). The cached form gathers each step's batch from a dataset
+held on the device, at indices drawn on the host from the state's key and
+step (:func:`cached_batch_indices`, the reference's stream bit for bit).
+
+**The step as a CUDA graph holds it.** Every value that changes from step
+to step reaches the step as a tensor at a fixed address. Before the K
+steps the host packs one row per step (:func:`_stage_rows`): the noise,
+the alpha, both Adams' bias corrections (from their host counts,
+``Adam.bias_corrections``) and, for the cached stream, the batch's
+example indices; one pinned copy puts the K rows on the device
+(:class:`_Rows`). The step reads row ``pos``, a position the device keeps
+and the step advances, and writes its metrics to row ``pos`` of a static
+buffer; after the K steps they are averaged on the device (the
+reference's ``jnp.mean`` over the scan axis). On a card each factory's
+step is captured once into a CUDA graph (``utils/graphs.py``) for the
+state it was given (a graph holds the parameters' addresses) and replayed
+K times with no host work between the replays. The CPU, ``graphs=False``
+and a data-parallel ``mesh`` (whose collectives stay out of graphs) run
+the same code eagerly, step by step. ``state.step`` and the Adams' counts
+stay host integers and advance by K once the K steps are enqueued; the
+host never waits for the device (the caller reads the metrics at its log
+crossings).
 
 ``fused_critic`` ("none", "pair", "all") only schedules the reference's
 critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
@@ -46,6 +62,7 @@ from gansynth_tpu_torch.ops.spectral import wave_to_image
 from gansynth_tpu_torch.synth import random as jrandom
 from gansynth_tpu_torch.train import losses
 from gansynth_tpu_torch.train.state import TrainState, ema_update
+from gansynth_tpu_torch.utils import graphs as cuda_graphs
 from gansynth_tpu_torch.utils.config import Config
 
 
@@ -79,26 +96,11 @@ def step_noise(rng: Tuple[int, int], step: int, batch: int,
             "z_g": jrandom.normal(k_zg, (batch, latent_dim))}
 
 
-def host_to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
-    """``array`` on ``device``: pinned and asynchronous on a card, so the
-    host does not wait for the stream (a copy from pageable memory
-    synchronises it)."""
-    t = torch.from_numpy(array)
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
-
-
-def _to_device(noise: Dict[str, np.ndarray],
-               device: torch.device) -> Dict[str, torch.Tensor]:
-    """One host-to-device copy of all of ``noise``."""
-    flat = host_to_device(np.concatenate([v.reshape(-1)
-                                          for v in noise.values()]), device)
-    out, at = {}, 0
-    for k, v in noise.items():
-        out[k] = flat[at:at + v.size].reshape(v.shape)
-        at += v.size
-    return out
+def _host(array) -> np.ndarray:
+    """A float32 numpy copy of ``array`` (numpy, or a tensor anywhere)."""
+    if torch.is_tensor(array):
+        array = array.detach().cpu().numpy()
+    return np.asarray(array, np.float32)
 
 
 def _set_grads(loss: torch.Tensor, params, mesh=None) -> None:
@@ -130,26 +132,24 @@ def _mean_over_ranks(metrics: Dict[str, torch.Tensor],
 
 StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 
+_D_METRICS = ("d_loss", "wgan", "gradient_penalty", "drift", "d_pitch_ce",
+              "d_pitch_ce_fake", "critic_real", "critic_fake")
+# alpha, then the critic's and the generator's Adam bias corrections
+_SCALARS = 5
 
-def make_train_step(config: Config, stage: int, mesh=None) -> StepFn:
-    """The step function for ``stage``:
-    ``step(state, wave [B, T], pitch [B], alpha, z_d=None, u=None,
-    z_g=None) -> (state, metrics)``. Noise not passed is drawn from the
-    state's key and step (:func:`step_noise`). The state is updated in
-    place; the metrics are 0-d float32 tensors.
 
-    With a data-parallel ``mesh`` (``parallel.sharding``), ``wave`` and
-    ``pitch`` are this rank's rows of the global batch; the noise (drawn,
-    or passed for the global batch) is taken at the same rows; the
-    minibatch-stddev statistic, the gradients and the metrics are the
-    global batch's, so every rank holds the same state after the step."""
+def _make_core(config: Config, stage: int, mesh):
+    """``(core, metric names)``: ``core(state, wave, pitch, alpha, z_d, u,
+    z_g, bc_d, bc_g) -> metrics``, one step's device work on tensors
+    (``bc_d``, ``bc_g``: each Adam's two bias corrections), updating the
+    state's tensors in place."""
     m, t = config.model, config.train
     if t.fused_critic not in ("none", "pair", "all"):
         raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
     use_pc = (t.pitch_consistency_weight > 0.0
               and stage >= t.pitch_consistency_min_stage)
 
-    def critic_update(state, real, labels, z_d, u, alpha):
+    def critic_update(state, real, labels, z_d, u, alpha, bc):
         def critic_fn(x):
             return state.d(x, stage, alpha, mesh)
 
@@ -166,15 +166,12 @@ def make_train_step(config: Config, stage: int, mesh=None) -> StepFn:
         d_loss = wgan + t.gp_weight * gp + t.drift_weight * drift \
             + t.aux_pitch_weight * aux
         _set_grads(d_loss, state.d.parameters(), mesh)
-        state.d_opt.step()
-        return {
-            "d_loss": d_loss, "wgan": wgan, "gradient_penalty": gp,
-            "drift": drift, "d_pitch_ce": ce, "d_pitch_ce_fake": ce_fake,
-            "critic_real": torch.mean(c_real),
-            "critic_fake": torch.mean(c_fake),
-        }
+        state.d_opt.update(*bc)
+        return dict(zip(_D_METRICS, (
+            d_loss, wgan, gp, drift, ce, ce_fake, torch.mean(c_real),
+            torch.mean(c_fake))))
 
-    def generator_update(state, labels, z_g, alpha):
+    def generator_update(state, labels, z_g, alpha, bc):
         fake = state.g(z_g, labels, stage, alpha)
         c_fake, logits_fake = state.d(fake, stage, alpha, mesh)
         adv = losses.generator_adversarial_loss(c_fake)
@@ -189,72 +186,291 @@ def make_train_step(config: Config, stage: int, mesh=None) -> StepFn:
             out["g_pitch_consistency"] = pc
         out["g_loss"] = g_loss
         _set_grads(g_loss, state.g.parameters(), mesh)
-        state.g_opt.step()
+        state.g_opt.update(*bc)
         return out
 
-    def step_fn(state: TrainState, wave: torch.Tensor, pitch: torch.Tensor,
-                alpha=1.0, z_d: Optional[torch.Tensor] = None,
-                u: Optional[torch.Tensor] = None,
-                z_g: Optional[torch.Tensor] = None):
-        device = wave.device
-        batch = wave.shape[0] * (1 if mesh is None else mesh.world)
-        rows = slice(None) if mesh is None else mesh.rows(batch)
-        given = {k: None if v is None else v[rows]
-                 for k, v in (("z_d", z_d), ("u", u), ("z_g", z_g))}
-        if any(v is None for v in given.values()):
-            drawn = step_noise(state.rng, state.step, batch, m.latent_dim)
-            given.update(_to_device({k: drawn[k][rows]
-                                     for k, v in given.items() if v is None},
-                                    device))
-        z_d, u, z_g = given["z_d"], given["u"], given["z_g"]
-        labels = pitch_to_onehot(pitch.to(device), config)
+    def core(state, wave, pitch, alpha, z_d, u, z_g, bc_d, bc_g):
+        labels = pitch_to_onehot(pitch, config)
         with torch.no_grad(), record_function("spectral_frontend"):
             real = real_image_for_stage(wave.float(), stage, config)
 
         # ----- critic update -----
         with record_function("discriminator_update"):
-            metrics = critic_update(state, real, labels, z_d, u, alpha)
+            metrics = critic_update(state, real, labels, z_d, u, alpha, bc_d)
 
         # ----- generator update (fresh latents, refreshed critic) -----
         with record_function("generator_update"):
-            metrics.update(generator_update(state, labels, z_g, alpha))
+            metrics.update(generator_update(state, labels, z_g, alpha, bc_g))
         with record_function("ema_update"):
             ema_update(state.ema, state.g, t.ema_decay)
-        state.step += 1
         metrics = {k: v.detach().float() for k, v in metrics.items()}
         if mesh is not None:
             metrics = _mean_over_ranks(metrics, mesh)
-        metrics["alpha"] = torch.tensor(float(alpha))
-        return state, metrics
+        return metrics
 
-    return step_fn
+    names = (*_D_METRICS, "g_adv", "g_pitch_ce",
+             *(("g_pitch_consistency",) if use_pc else ()), "g_loss")
+    return core, names
 
 
-def _mean_metrics(metrics, alpha) -> Dict[str, torch.Tensor]:
-    """The inner steps' metrics averaged on the device (the reference's
-    ``jnp.mean`` over the scan axis), and the last alpha."""
-    out = {k: torch.stack([m[k] for m in metrics]).mean(0)
-           for k in metrics[0] if k != "alpha"}
-    out["alpha"] = torch.tensor(float(alpha))
+def _stage_rows(state: TrainState, alphas, batch: int, latent_dim: int,
+                mesh=None, given=None, indices=None) -> np.ndarray:
+    """The next ``len(alphas)`` steps' rows (int32 ``[k, width]``, see
+    :class:`_Rows`): step i's noise drawn from ``(state.rng, state.step +
+    i)`` for the global ``batch`` (or taken from ``given``) at this rank's
+    rows, its alpha, both Adams' bias corrections at their counts + i + 1,
+    and ``indices[i]``."""
+    rows = slice(None) if mesh is None else mesh.rows(batch)
+    out = []
+    for i, alpha in enumerate(alphas):
+        noise = {k: _host(v) for k, v in (given or {}).items()}
+        if len(noise) < 3:
+            drawn = step_noise(state.rng, state.step + i, batch, latent_dim)
+            noise = {**drawn, **noise}
+        scalars = np.array(
+            [alpha, *state.d_opt.bias_corrections(state.d_opt.count + i + 1),
+             *state.g_opt.bias_corrections(state.g_opt.count + i + 1)],
+            np.float32)
+        floats = np.concatenate([noise[k][rows].reshape(-1)
+                                 for k in ("z_d", "u", "z_g")] + [scalars])
+        parts = [floats.astype(np.float32).view(np.int32)]
+        if indices is not None:
+            parts.append(np.asarray(indices[i], np.int32))
+        out.append(np.concatenate(parts))
+    return np.stack(out)
+
+
+def _copy_in(dst: torch.Tensor, array: np.ndarray) -> None:
+    """``dst[:len(array)] = array`` in one copy, from pinned memory to a
+    card (the host does not wait; the copy keeps its source alive)."""
+    src = torch.from_numpy(np.ascontiguousarray(array))
+    if dst.device.type == "cuda":
+        src = src.pin_memory()
+    dst[:len(array)].copy_(src, non_blocking=True)
+
+
+class _Rows:
+    """The per-step values of up to ``kmax`` steps, on ``device``. Row k
+    holds step k's z_d [b, D], u [b], z_g [b, D], alpha and the critic's
+    and the generator's bias corrections as float32 bits, and with
+    ``indices`` the batch's example indices (int32). :attr:`pos`, on the
+    device, is the row the next step reads; each step writes its metrics
+    to row ``pos`` of :attr:`metrics` and advances it."""
+
+    def __init__(self, device, batch: int, latent_dim: int, kmax: int,
+                 n_metrics: int, indices: bool):
+        self.batch, self.latent_dim = batch, latent_dim
+        self.floats = 2 * batch * latent_dim + batch + _SCALARS
+        self.width = self.floats + (batch if indices else 0)
+        self.rows = torch.zeros((kmax, self.width), dtype=torch.int32,
+                                device=device)
+        self.pos = torch.zeros((1,), dtype=torch.int64, device=device)
+        self.metrics = torch.zeros((kmax, n_metrics), dtype=torch.float32,
+                                   device=device)
+
+    def load(self, rows: np.ndarray) -> None:
+        _copy_in(self.rows, rows)
+        self.pos.zero_()
+
+    def read(self):
+        """``(z_d, u, z_g, alpha, bc_d, bc_g, idx)`` of row ``pos``."""
+        row = self.rows.index_select(0, self.pos)[0]
+        f = row.view(torch.float32)
+        b, d = self.batch, self.latent_dim
+        n = b * d
+        s = f[2 * n + b:self.floats]
+        idx = row[self.floats:].long() if self.width > self.floats else None
+        return (f[:n].view(b, d), f[n:n + b].view(b, 1, 1, 1),
+                f[n + b:2 * n + b].view(b, d), s[0], (s[1], s[2]),
+                (s[3], s[4]), idx)
+
+    def write(self, metrics: torch.Tensor) -> None:
+        self.metrics.index_copy_(0, self.pos, metrics[None])
+        self.pos.add_(1)
+
+    def mean(self, k: int, names) -> Dict[str, torch.Tensor]:
+        """Each metric averaged over the first k rows (the reference's
+        ``jnp.mean`` over the scan axis)."""
+        cols = self.metrics[:k].t().contiguous()
+        return {name: cols[j].mean(0) for j, name in enumerate(names)}
+
+
+def _state_tensors(state: TrainState):
+    """Every tensor a step updates: the three networks' parameters and
+    both Adams' moments."""
+    out = [*state.g.parameters(), *state.d.parameters(),
+           *state.ema.parameters()]
+    for opt in (state.d_opt, state.g_opt):
+        for group in opt.param_groups:
+            out += [opt.state[p][k] for p in group["params"]
+                    for k in ("mu", "nu")]
     return out
 
 
-def make_superstep(config: Config, stage: int, mesh=None) -> StepFn:
+class _StepProgram:
+    """One factory's step: :func:`_make_core` fed from :class:`_Rows`. On a
+    card without a ``mesh`` (and with ``graphs``) it is captured once into
+    a CUDA graph per set of addresses (the state's tensors, the rows and
+    the static inputs) and replayed once a step; otherwise it runs eagerly,
+    the same code."""
+
+    def __init__(self, config: Config, stage: int, mesh, graphs: bool):
+        self.core, self.names = _make_core(config, stage, mesh)
+        self.latent_dim = config.model.latent_dim
+        self.graphs = graphs and mesh is None
+        self.rows: Optional[_Rows] = None
+        self.static: Dict[str, torch.Tensor] = {}
+        self.graph: Optional[cuda_graphs.Graph] = None
+        self.addresses = None
+
+    def buffer(self, name: str, shape, dtype, device) -> torch.Tensor:
+        """A static input buffer, made anew (and the graph dropped) when
+        its shape, type or device changes."""
+        buf = self.static.get(name)
+        if (buf is None or tuple(buf.shape) != tuple(shape)
+                or buf.dtype != dtype or buf.device != device):
+            buf = self.static[name] = torch.zeros(shape, dtype=dtype,
+                                                  device=device)
+            self.graph = None
+        return buf
+
+    def _body(self, state, fetch) -> None:
+        z_d, u, z_g, alpha, bc_d, bc_g, idx = self.rows.read()
+        wave, pitch = fetch(idx, self.rows.pos)
+        metrics = self.core(state, wave, pitch, alpha, z_d, u, z_g, bc_d,
+                            bc_g)
+        self.rows.write(torch.stack([metrics[k] for k in self.names]))
+
+    def _capture(self, state, fetch, device) -> cuda_graphs.Graph:
+        # The warm-up is a real step: undo it before the capture.
+        tensors = _state_tensors(state)
+        saved = [t.detach().clone() for t in tensors]
+
+        def restore():
+            with torch.no_grad():
+                for t, s in zip(tensors, saved):
+                    t.copy_(s)
+            self.rows.pos.zero_()
+
+        return cuda_graphs.Graph(lambda: self._body(state, fetch), device,
+                                 before_capture=restore)
+
+    def run(self, state, rows: np.ndarray, fetch, device, kmax: int,
+            batch: int, indices: bool, static=()) -> Dict[str, torch.Tensor]:
+        """Enqueue ``len(rows)`` steps of ``state``; ``fetch(idx, pos, i)``
+        gives step i's ``(wave, pitch)`` from the row's device indices or
+        position (``i`` is read only by the eager path). Advances the
+        host's step and Adam counts; returns the steps' mean metrics."""
+        k = len(rows)
+        r = self.rows
+        if (r is None or r.rows.shape[0] < k or r.batch != batch
+                or r.rows.device != device
+                or (r.width > r.floats) != indices):
+            r = self.rows = _Rows(device, batch, self.latent_dim,
+                                  max(k, kmax), len(self.names), indices)
+            self.graph = None
+        if rows.shape[1] != r.width:
+            raise ValueError(f"staged rows of {rows.shape[1]} words, the "
+                             f"step reads {r.width}")
+        r.load(rows)
+        if self.graphs and cuda_graphs.available(device):
+            for opt in (state.d_opt, state.g_opt):
+                opt.init_moments()
+            key = tuple(t.data_ptr() for t in
+                        (*_state_tensors(state), *static,
+                         *self.static.values()))
+            if self.graph is None or key != self.addresses:
+                self.graph = None   # frees its pool before the next capture
+                self.graph = self._capture(
+                    state, lambda idx, pos: fetch(idx, pos, 0), device)
+                self.addresses = key
+            for _ in range(k):
+                self.graph.replay()
+        else:
+            for i in range(k):
+                self._body(state, lambda idx, pos, i=i: fetch(idx, pos, i))
+        state.step += k
+        state.d_opt.count += k
+        state.g_opt.count += k
+        return r.mean(k, self.names)
+
+
+def _streamed(prog: _StepProgram, waves: torch.Tensor, pitches: torch.Tensor,
+              kmax: int):
+    """Static buffers [kmax, ...] holding ``waves`` [k, B, T] and
+    ``pitches`` [k, B] at rows 0..k-1, and the fetch of row ``pos``."""
+    device = waves.device
+    wb = prog.buffer("waves", (kmax, *waves.shape[1:]), torch.float32,
+                     device)
+    pb = prog.buffer("pitches", (kmax, *pitches.shape[1:]), torch.int64,
+                     device)
+    wb[:len(waves)].copy_(waves)
+    pb[:len(pitches)].copy_(pitches)
+    return lambda idx, pos, i: (wb.index_select(0, pos)[0],
+                                pb.index_select(0, pos)[0])
+
+
+def make_train_step(config: Config, stage: int, mesh=None,
+                    graphs: bool = True) -> StepFn:
+    """The step function for ``stage``:
+    ``step(state, wave [B, T], pitch [B], alpha, z_d=None, u=None,
+    z_g=None) -> (state, metrics)``. Noise not passed is drawn from the
+    state's key and step (:func:`step_noise`). The state is updated in
+    place; the metrics are 0-d float32 tensors. On a card the step
+    replays its CUDA graph (see the module's docstring).
+
+    With a data-parallel ``mesh`` (``parallel.sharding``), ``wave`` and
+    ``pitch`` are this rank's rows of the global batch; the noise (drawn,
+    or passed for the global batch) is taken at the same rows; the
+    minibatch-stddev statistic, the gradients and the metrics are the
+    global batch's, so every rank holds the same state after the step."""
+    prog = _StepProgram(config, stage, mesh, graphs)
+
+    def step_fn(state: TrainState, wave: torch.Tensor, pitch: torch.Tensor,
+                alpha=1.0, z_d: Optional[torch.Tensor] = None,
+                u: Optional[torch.Tensor] = None,
+                z_g: Optional[torch.Tensor] = None):
+        batch = wave.shape[0] * (1 if mesh is None else mesh.world)
+        given = {k: v for k, v in (("z_d", z_d), ("u", u), ("z_g", z_g))
+                 if v is not None}
+        rows = _stage_rows(state, [float(alpha)], batch,
+                           config.model.latent_dim, mesh, given)
+        fetch = _streamed(prog, wave[None], torch.as_tensor(pitch)[None], 1)
+        metrics = prog.run(state, rows, fetch, wave.device, 1,
+                           wave.shape[0], False)
+        metrics["alpha"] = torch.tensor(float(alpha))
+        return state, metrics
+
+    step_fn.program = prog
+    return step_fn
+
+
+def make_superstep(config: Config, stage: int, mesh=None,
+                   graphs: bool = True) -> StepFn:
     """K steps in one call: ``superstep(state, waves [K, B, T], pitches
     [K, B], alphas [K]) -> (state, metrics)``, the metrics averaged over
     the K steps, plus the last alpha. Each step draws its noise from
     ``(state.rng, state.step)``, so a run chunked into supersteps equals
-    the same steps taken one at a time. With a ``mesh``, B is this rank's
-    rows (:func:`make_train_step`)."""
-    step_fn = make_train_step(config, stage, mesh)
+    the same steps taken one at a time. On a card the K steps are K
+    replays of one CUDA graph. With a ``mesh``, B is this rank's rows
+    (:func:`make_train_step`)."""
+    prog = _StepProgram(config, stage, mesh, graphs)
+    kmax = max(1, int(config.train.unroll))
 
     def superstep(state, waves, pitches, alphas):
-        metrics = []
-        for wave, pitch, alpha in zip(waves, pitches, alphas):
-            state, m = step_fn(state, wave, pitch, float(alpha))
-            metrics.append(m)
-        return state, _mean_metrics(metrics, alphas[-1])
+        alphas = [float(a) for a in alphas]
+        local = waves.shape[1]
+        batch = local * (1 if mesh is None else mesh.world)
+        rows = _stage_rows(state, alphas, batch, config.model.latent_dim,
+                           mesh)
+        size = max(kmax, len(alphas))
+        fetch = _streamed(prog, waves, torch.as_tensor(pitches), size)
+        metrics = prog.run(state, rows, fetch, waves.device, size, local,
+                           False)
+        metrics["alpha"] = torch.tensor(alphas[-1])
+        return state, metrics
 
+    superstep.program = prog
     return superstep
 
 
@@ -321,7 +537,7 @@ def _gather_from_owners(mesh, all_waves: torch.Tensor,
 
 
 def make_cached_superstep(config: Config, stage: int, num_examples: int,
-                          mesh=None) -> StepFn:
+                          mesh=None, graphs: bool = True) -> StepFn:
     """K steps over a dataset held on the device: ``superstep(state,
     all_waves [N, T], all_pitches [N], alphas [K]) -> (state, metrics)``.
     Each step gathers its batch at :func:`cached_batch_indices` of the
@@ -334,7 +550,6 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
     ``device_cache_layout="replicate"``, or from their owners under
     ``"shard"`` (``all_waves`` is then this rank's N/W examples;
     ``num_examples`` stays N)."""
-    step_fn = make_train_step(config, stage, mesh)
     batch = config.train.batch_for_stage(stage)
     sharded = mesh is not None and config.train.device_cache_layout == "shard"
     if mesh is not None:
@@ -352,23 +567,33 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
             f"cached_stream='shuffle' needs batch ({batch}) <= dataset "
             f"size ({num_examples}); use 'replacement' or a smaller batch")
 
-    def superstep(state, all_waves, all_pitches, alphas):
-        metrics = []
-        for alpha in alphas:
-            idx = cached_batch_indices(state.rng, state.step, batch,
-                                       num_examples, law)
-            if sharded:
-                wave, pitch = _gather_from_owners(mesh, all_waves,
-                                                  all_pitches, idx,
-                                                  num_examples)
-            else:
-                if mesh is not None:
-                    idx = idx[mesh.rows(batch)]
-                idx = host_to_device(idx.astype(np.int64), all_waves.device)
-                wave = all_waves.index_select(0, idx)
-                pitch = all_pitches.index_select(0, idx)
-            state, m = step_fn(state, wave, pitch, float(alpha))
-            metrics.append(m)
-        return state, _mean_metrics(metrics, alphas[-1])
+    prog = _StepProgram(config, stage, mesh, graphs)
+    kmax = max(1, int(config.train.unroll))
+    local = batch if mesh is None else batch // mesh.world
 
+    def superstep(state, all_waves, all_pitches, alphas):
+        alphas = [float(a) for a in alphas]
+        idx = [cached_batch_indices(state.rng, state.step + i, batch,
+                                    num_examples, law)
+               for i in range(len(alphas))]
+        if sharded:   # eager: the owners' rows depend on the host's indices
+            def fetch(dev_idx, pos, i):
+                return _gather_from_owners(mesh, all_waves, all_pitches,
+                                           idx[i], num_examples)
+            staged = None
+        else:
+            def fetch(dev_idx, pos, i):
+                return (all_waves.index_select(0, dev_idx),
+                        all_pitches.index_select(0, dev_idx))
+            staged = [x if mesh is None else x[mesh.rows(batch)]
+                      for x in idx]
+        rows = _stage_rows(state, alphas, batch, config.model.latent_dim,
+                           mesh, indices=staged)
+        metrics = prog.run(state, rows, fetch, all_waves.device,
+                           max(kmax, len(alphas)), local, staged is not None,
+                           static=(all_waves, all_pitches))
+        metrics["alpha"] = torch.tensor(alphas[-1])
+        return state, metrics
+
+    superstep.program = prog
     return superstep

@@ -1,17 +1,22 @@
 """Where a synthesis batch, or a training step, spends its time on the card.
 
-    python -m gansynth_tpu_torch.utils.profiling --model-dir runs/flagship_r4
+    python -m gansynth_tpu_torch.utils.profiling --batch 1 16
     python -m gansynth_tpu_torch.utils.profiling --train
     python -m gansynth_tpu_torch.utils.profiling --loop
     python -m gansynth_tpu_torch.utils.profiling --evaluate 8
 
-Synthesis: loads the run's EMA generator on the card and, for each batch
-size, times the stages of one seeded synthesis batch with CUDA events (the
-host latent draw and its copy to the card, the generator, K1, the iSTFT,
-the copy of the waves back), then traces a few batches with
-``torch.profiler`` and prints the kernels that take the most device time
-and the device's idle share over the traced window. One JSON object per
-batch size is printed to standard output.
+Synthesis (``--batch B ...``): loads the run's EMA generator on the card
+and, for each batch size, times the stages of one eager seeded synthesis
+batch with CUDA events (the host latent draw and its copy to the card,
+the generator, K1, the iSTFT, the copy of the waves back), traces a few
+eager batches with ``torch.profiler`` (the kernels that take the most
+device time, the device's idle share over the traced window), and then
+holds the served form, the batch replayed from its CUDA graph, against
+the eager batch in turns (eager, graph, graph, eager, ...): the host's
+milliseconds per batch end to end (waves on the host), and from a trace
+of each the device's busy milliseconds, its idle share and the CUDA API
+launches a batch (``cudaLaunchKernel`` and the like, ``cudaGraphLaunch``).
+One JSON object per batch size is printed to standard output.
 
 ``--train``: one WGAN-GP step of the run at its archived stage (the
 released config, batch ``stage_batch_sizes[stage]``, G and EMA from
@@ -26,18 +31,19 @@ steps with the device time of the step's phases (``spectral_frontend``,
 kernels that take the most device time and the idle share. One JSON
 object per run.
 
-``--loop``: the same step (kernels on) taken two ways in one process, in
-turns (single, superstep, superstep, single, ...): one step at a time
-with a synchronize after each (as ``chip_smoke.py``'s phase 8 times it),
-and the training loop's cached superstep of ``unroll`` steps over 256
-fixture notes held on the card (``train/step.py:make_cached_superstep``).
-For each, the CUDA-event ms a step (median, least and most over the
-repeats); for the superstep also the host's time to return from the call
-(what it takes to enqueue the steps, the noise and index draws included)
-and, from a ``torch.profiler`` trace of one superstep, the device's idle
-share and the host's CUDA runtime calls that take the most host time (a
-``cudaStreamSynchronize`` or ``cudaHostAlloc`` there is a step waiting
-for the device). One JSON object.
+``--loop``: the training loop's cached superstep of ``unroll`` steps over
+256 fixture notes held on the card (``train/step.py:
+make_cached_superstep``, kernels on) taken two ways in one process, in
+turns (eager, graph, graph, eager, ...): each step launched op by op,
+and each step a replay of its CUDA graph. For each, the CUDA-event ms a
+step and the host's time to return from the call (what it takes to
+enqueue the steps, the noise and index draws included), median, least
+and most over the repeats; from a ``torch.profiler`` trace of one
+superstep, the device's busy ms a step and idle share, the CUDA API
+launches a step and the host's CUDA runtime calls that take the most host
+time (a ``cudaStreamSynchronize`` or ``cudaHostAlloc`` there is a step
+waiting for the device); the graph's capture seconds and each form's
+peak memory. One JSON object.
 
 ``--evaluate N``: ``cli evaluate`` on the run at its full width, the 61
 pitches x ``N`` samples (seed 0, attribution, fixture references), in this
@@ -56,7 +62,7 @@ import argparse
 import json
 import statistics
 import time
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -76,7 +82,8 @@ def _event_ms(fn, iters: int) -> float:
 @torch.inference_mode()
 def stage_times(config, generator, stage: int, batch: int,
                 iters: int = 20) -> Dict[str, float]:
-    """Milliseconds per batch of each stage of the seeded sampler."""
+    """Milliseconds per batch of each stage of the eager seeded
+    sampler."""
     from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
     from gansynth_tpu_torch.ops.spectral import istft_rect
     from gansynth_tpu_torch.synth.random import seeded_latents
@@ -87,7 +94,7 @@ def stage_times(config, generator, stage: int, batch: int,
 
     device = next(generator.parameters()).device
     seeds, pitches = list(range(batch)), [60] * batch
-    sample = make_seeded_sampler(config, generator, stage)
+    sample = make_seeded_sampler(config, generator, stage, graphs=False)
     for _ in range(3):
         sample(seeds, pitches)
     torch.cuda.synchronize()
@@ -125,27 +132,116 @@ def stage_times(config, generator, stage: int, batch: int,
 @torch.inference_mode()
 def top_kernels(config, generator, stage: int, batch: int, iters: int = 5,
                 top: int = 12) -> Dict[str, object]:
-    """Device time by kernel name per batch over ``iters`` traced batches,
-    and the device's idle share of the traced window's wall time."""
+    """Device time by kernel name per eager batch over ``iters`` traced
+    batches, and the device's idle share of the traced window's wall
+    time."""
     from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
 
-    sample = make_seeded_sampler(config, generator, stage)
+    sample = make_seeded_sampler(config, generator, stage, graphs=False)
     seeds, pitches = list(range(batch)), [60] * batch
     sample(seeds, pitches).cpu()
     return _trace(lambda: sample(seeds, pitches).cpu(), iters, top)
 
 
+def spread(xs: List[float]) -> Dict[str, object]:
+    return {"median": statistics.median(xs), "min": min(xs), "max": max(xs),
+            "all": xs}
+
+
+def in_turns(fns: Dict[str, Callable], rounds: int,
+             per: int = 1) -> Dict[str, Dict[str, List[float]]]:
+    """Each of ``fns`` once a round, the order reversed every other round
+    (a, b, b, a, ...): for every call, divided by the ``per`` units it
+    runs, the CUDA-event ms from its first launch to the device's end
+    (``ms``) and the host's ms until it returned (``host_ms``)."""
+    names = list(fns)
+    out = {k: {"ms": [], "host_ms": []} for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            fns[k]()
+            out[k]["host_ms"].append(1e3 * (time.perf_counter() - t0) / per)
+            end.record()
+            torch.cuda.synchronize()
+            out[k]["ms"].append(start.elapsed_time(end) / per)
+    return out
+
+
+def busy(fn, per: int, wall_ms: float, calls: int = 1) -> Dict[str, object]:
+    """From a trace of ``calls`` calls of ``fn``, each of ``per`` units:
+    the device's busy ms a unit, its idle share against ``wall_ms`` (an
+    untraced unit's time), the CUDA API launches a unit and the port's
+    kernels that ran on the device a unit (:data:`PORT_KERNELS`)."""
+    trace = _trace(fn, calls, 3)
+    device_ms = trace["device_ms_per_call"] / per
+    return {"device_ms": device_ms, "idle_share": 1.0 - device_ms / wall_ms,
+            "api_launches": {k: v / per for k, v in
+                             trace["api_launches_per_call"].items()},
+            "kernel_launches": {k: v / per for k, v in
+                                trace["port_kernels_per_call"].items()}}
+
+
+def kernel_launches(fn, calls: int = 1) -> Dict[str, float]:
+    """The port's kernels that ran on the device a call of ``fn``, counted
+    by name in a ``torch.profiler`` trace of ``calls`` calls (kernels that
+    a CUDA graph replays included)."""
+    return _trace(fn, calls, 0)["port_kernels_per_call"]
+
+
+def graph_vs_eager(config, generator, stage: int, batch: int,
+                   turns: int = 5, traced: int = 5) -> Dict[str, object]:
+    """The seeded sampler's batch eager and replayed from its CUDA graph,
+    ``turns`` rounds in turns: host ms a batch (waves on the host), and
+    from ``traced`` traced batches of each the device's busy ms, idle
+    share and API launches a batch."""
+    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+
+    seeds, pitches = list(range(batch)), [60] * batch
+    forms = {"eager": make_seeded_sampler(config, generator, stage,
+                                          graphs=False),
+             "graph": make_seeded_sampler(config, generator, stage)}
+    calls = {k: (lambda fn=fn: fn(seeds, pitches).cpu())
+             for k, fn in forms.items()}
+    for fn in calls.values():
+        for _ in range(2):   # the graph's capture, then a warm replay
+            fn()
+    times = in_turns(calls, turns)
+    return {k: {"host_ms": spread(times[k]["host_ms"]),
+                **busy(fn, 1, statistics.median(times[k]["host_ms"]),
+                       traced)}
+            for k, fn in calls.items()}
+
+
 PHASES = ("spectral_frontend", "discriminator_update", "generator_update",
           "ema_update")
+# The port's kernels by the names of their device functions in
+# kernels/csrc (each type and template instance): K1, K2, K3.
+PORT_KERNELS = {"synthesis_spectrum": "synthesis_spectrum_gather",
+                "conv3x3": "conv3x3_nhwc_", "dblock": "dblock_nhwc_"}
+
+
+def port_kernel(name: str):
+    """The :data:`PORT_KERNELS` key of a traced kernel's ``name``, or
+    None for any other kernel."""
+    for key, function in PORT_KERNELS.items():
+        if function in name:
+            return key
+    return None
 
 
 def _trace(fn, iters: int, top: int) -> Dict[str, object]:
     """``fn`` run ``iters`` times under ``torch.profiler``: per call, the
     device time by kernel, the span of each step phase on the device's
-    timeline (its ``record_function`` range), and the idle share of the
-    traced window's wall time. Ranges on the device's timeline (the
-    phases, ``Optimizer.step#...``) are spans, not kernels, and are kept
-    out of the kernel sums."""
+    timeline (its ``record_function`` range), the idle share of the
+    traced window's wall time, and the host's CUDA API launch calls by
+    name (kernel launches through the runtime or the driver, graph
+    launches), and how often each of the port's kernels ran (by
+    :func:`port_kernel`). Ranges on the device's timeline (the phases,
+    ``Optimizer.step#...``) are spans, not kernels, and are kept out of
+    the kernel sums."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -158,8 +254,13 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels: List[Dict[str, object]] = []
     phases: Dict[str, float] = {}
+    launches: Dict[str, float] = {}
+    port = dict.fromkeys(PORT_KERNELS, 0.0)
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            if e.key.startswith("cu") and ("LaunchKernel" in e.key
+                                           or "GraphLaunch" in e.key):
+                launches[e.key] = e.count / iters
             continue
         ms = e.device_time_total / 1e3 / iters
         if e.key in PHASES:
@@ -168,6 +269,9 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
                   or e.key.startswith("Optimizer.")):
             kernels.append({"name": e.key[:90], "ms_per_call": ms,
                             "launches_per_call": e.count / iters})
+            key = port_kernel(e.key)
+            if key is not None:
+                port[key] += e.count / iters
     kernels.sort(key=lambda k: -k["ms_per_call"])
     busy = sum(k["ms_per_call"] for k in kernels)
     return {
@@ -176,6 +280,8 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
         "idle_share": 1.0 - busy * iters / wall_ms if wall_ms else None,
         "phase_span_ms": phases,
         "top_kernels": kernels[:top],
+        "api_launches_per_call": launches,
+        "port_kernels_per_call": port,
     }
 
 
@@ -236,74 +342,59 @@ def train_step_profile(model_dir: str, kernels: str, device,
 
 def loop_profile(model_dir: str, device, unroll: int = 10,
                  repeats: int = 4) -> Dict[str, object]:
-    """Single steps against the cached superstep; see ``--loop``."""
+    """The cached superstep eager against its CUDA graph; see ``--loop``."""
+    import copy
+
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.data.fixtures import note_batch
     from gansynth_tpu_torch.train.schedule import schedule_from_config
     from gansynth_tpu_torch.train.state import state_from_ema
-    from gansynth_tpu_torch.train.step import (
-        make_cached_superstep,
-        make_train_step,
-    )
+    from gansynth_tpu_torch.train.step import make_cached_superstep
 
     config = run_config(model_dir).released().with_overrides(
-        {"model": {"conv_kernel": "pallas", "dblock_kernel": "pallas"}})
+        {"model": {"conv_kernel": "pallas", "dblock_kernel": "pallas"},
+         "train": {"unroll": unroll}})
     state = state_from_ema(config, f"{model_dir}/ema.npz", device)
     stage, alpha = schedule_from_config(config).stage_and_alpha(state.step)
     m = config.model
     batch = config.train.batch_for_stage(stage)
     waves, pitches = note_batch(256, m.pitch_min, m.pitch_max)
     all_waves = torch.from_numpy(waves).to(device)
-    all_pitches = torch.from_numpy(pitches).to(device)
-    step_fn = make_train_step(config, stage)
-    superstep = make_cached_superstep(config, stage, 256)
+    all_pitches = torch.from_numpy(pitches.astype("int32")).to(device)
     alphas = [alpha] * unroll
+    states = {"eager": copy.deepcopy(state), "graph": state}
+    steps = {"eager": make_cached_superstep(config, stage, 256,
+                                            graphs=False),
+             "graph": make_cached_superstep(config, stage, 256)}
 
-    def single():
-        step_fn(state, all_waves[:batch], all_pitches[:batch], alpha)
+    def run(kind):
+        steps[kind](states[kind], all_waves, all_pitches, alphas)
 
-    def fused():
-        superstep(state, all_waves, all_pitches, alphas)
-
-    for _ in range(2):
-        single()
-    fused()
-    torch.cuda.synchronize()
-    singles, fused_ms, enqueue_ms = [], [], []
-    for r in range(repeats):
-        for kind in (("single", "fused") if r % 2 == 0
-                     else ("fused", "single")):
-            if kind == "single":
-                singles += [_event_ms(single, 1) for _ in range(unroll)]
-                continue
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            t0 = time.perf_counter()
-            fused()
-            enqueue_ms.append(1e3 * (time.perf_counter() - t0) / unroll)
-            end.record()
-            torch.cuda.synchronize()
-            fused_ms.append(start.elapsed_time(end) / unroll)
-    trace = _trace(fused, 1, 10)
-    runtime = _runtime_calls(fused)
-
-    def spread(xs):
-        return {"median": statistics.median(xs), "min": min(xs),
-                "max": max(xs), "all": xs}
-
-    return {
-        "stage": stage, "alpha": alpha, "batch": batch,
-        "compute_dtype": m.compute_dtype, "unroll": unroll,
-        "repeats": repeats,
-        "single_step_ms": spread(singles),
-        "superstep_ms_per_step": spread(fused_ms),
-        "superstep_host_enqueue_ms_per_step": spread(enqueue_ms),
-        "superstep_idle_share": 1.0 - trace["device_ms_per_call"] / (
-            statistics.median(fused_ms) * unroll),
-        "superstep_device_ms_per_step": trace["device_ms_per_call"] / unroll,
-        "superstep_runtime_calls": runtime,
-    }
+    peak, first_s = {}, {}
+    for kind in steps:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run(kind)   # the graph's warm-up and capture, then its replays
+        torch.cuda.synchronize()
+        first_s[kind] = time.perf_counter() - t0
+        peak[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+    times = in_turns({k: (lambda k=k: run(k)) for k in steps}, repeats,
+                     unroll)
+    out = {"stage": stage, "alpha": alpha, "batch": batch,
+           "compute_dtype": m.compute_dtype, "unroll": unroll,
+           "repeats": repeats}
+    for kind in steps:
+        ms = times[kind]["ms"]
+        out[kind] = {
+            "ms_per_step": spread(ms),
+            "host_enqueue_ms_per_step": spread(times[kind]["host_ms"]),
+            **busy(lambda: run(kind), unroll, statistics.median(ms)),
+            "runtime_calls": _runtime_calls(lambda: run(kind)),
+            "first_call_s": first_s[kind],
+            "peak_mem_gib": peak[kind]}
+    out["graph"]["capture_s"] = steps["graph"].program.graph.capture_seconds
+    return out
 
 
 def _runtime_calls(fn, top: int = 8) -> List[Dict[str, object]]:
@@ -411,8 +502,8 @@ def main(argv=None) -> int:
                         "with the plain lowerings, and with the plain "
                         "lowerings under cudnn.benchmark")
     p.add_argument("--loop", action="store_true",
-                   help="single steps against the training loop's cached "
-                        "superstep, in turns")
+                   help="the training loop's cached superstep eager "
+                        "against its CUDA graph, in turns")
     p.add_argument("--evaluate", type=int, default=None, metavar="N",
                    help="time cli evaluate at N samples a pitch")
     args = p.parse_args(argv)
@@ -449,6 +540,8 @@ def main(argv=None) -> int:
             "batch": batch,
             "stages": stage_times(config, generator, stage, batch),
             "trace": top_kernels(config, generator, stage, batch),
+            "graph_vs_eager": graph_vs_eager(config, generator, stage,
+                                             batch),
         }), flush=True)
     return 0
 

@@ -1,5 +1,7 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-and an exported sampler that launches K1 from its program.
+an exported sampler that launches K1 from its program, and the CUDA
+graphs of the serving rungs and the training superstep against the same
+work run eagerly.
 
 Marked ``gpu``; each test skips unless ``torch.cuda.is_available()``. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -334,15 +336,17 @@ def test_exported_sampler_launches_the_kernel(cuda_device, tmp_path):
     before = K.synthesis_spectrum.launches
     got = on_card(seeds, pitch)
     torch.cuda.synchronize()
-    assert K.synthesis_spectrum.launches == before + 1
+    # the rung's first call: a warm-up batch, then the captured graph's
+    # replay (utils/graphs.py), one launch each
+    assert K.synthesis_spectrum.launches == before + 2
     want = make_seeded_sampler(config, gen, 2)(seeds, pitch)
     rel = float((got - want).norm() / want.norm())
     assert rel <= 1e-3
     on_cpu = load_sampler_artifact(path, "cpu")
     cpu = on_cpu(seeds, pitch)
     assert cpu.device.type == "cpu"
-    # one more from the in-process sampler, none from the CPU
-    assert K.synthesis_spectrum.launches == before + 2
+    # two more from the in-process sampler's first call, none from the CPU
+    assert K.synthesis_spectrum.launches == before + 4
     _wave_bar(cpu, got.cpu())
 
 
@@ -433,3 +437,149 @@ def test_remat_lowers_the_step_peak_memory(cuda_device):
     assert peaks[True] < peaks[False], peaks
     for k, v in metrics[False].items():
         assert abs(metrics[True][k] - v) <= 1e-3 * max(1.0, abs(v)), k
+
+
+def _tiny_generator(device):
+    from gansynth_tpu_torch.models.generator import Generator
+    from gansynth_tpu_torch.utils.config import Config, ModelConfig
+
+    config = Config(model=ModelConfig(latent_dim=8, fmap_base=64,
+                                      fmap_max=16, fmap_min=8))
+    gen = Generator(config.model, generator=torch.Generator().manual_seed(0))
+    return config, gen.to(device).eval()
+
+
+@pytest.mark.gpu
+def test_serving_graphs_equal_eager_at_each_rung(cuda_device, tmp_path):
+    """Each rung's CUDA graph (the in-process seeded sampler, each
+    data-parallel replica's share, the exported artifact) renders the
+    eager batch to the bit, and launches K1 once a replay (by the
+    wrapper's count and by name in a profiler trace)."""
+    from gansynth_tpu_torch.synth.export import (
+        load_sampler_artifact,
+        save_sampler_artifact,
+    )
+    from gansynth_tpu_torch.synth.sampler import (
+        make_dp_seeded_sampler,
+        make_seeded_sampler,
+    )
+    from gansynth_tpu_torch.utils.profiling import kernel_launches
+
+    config, gen = _tiny_generator(cuda_device)
+    graphed = make_seeded_sampler(config, gen, 2)
+    eager = make_seeded_sampler(config, gen, 2, graphs=False)
+    path = save_sampler_artifact(str(tmp_path / "s.gsx"), config, gen,
+                                 step=1, stage=2)
+    exported = load_sampler_artifact(path, "cuda")
+    exported_eager = load_sampler_artifact(path, "cuda", graphs=False)
+    dp = make_dp_seeded_sampler(config, gen, ["cuda:0", "cuda:0"], 2)
+    for b in (1, 4, 16):
+        seeds = [1000 + 7 * i for i in range(b)]
+        pitches = [24 + (5 * i) % 61 for i in range(b)]
+        want = eager(seeds, pitches)
+        for sample, ref in ((graphed, want),
+                            (exported, exported_eager(seeds, pitches))):
+            sample(seeds, pitches)   # the rung's capture
+            before = K.synthesis_spectrum.launches
+            got = sample(seeds, pitches)
+            assert K.synthesis_spectrum.launches == before + 1
+            assert torch.equal(got, ref)
+            traced = kernel_launches(lambda: sample(seeds, pitches))
+            assert traced["synthesis_spectrum"] == 1
+        if b > 1:   # two replicas, each with its half at its own rung
+            half = b // 2
+            want_dp = torch.cat([eager(seeds[:half], pitches[:half]),
+                                 eager(seeds[half:], pitches[half:])]).cpu()
+            assert torch.equal(dp(seeds, pitches), want_dp)
+    assert sorted(k[0][0][0] for k in graphed.graphed.graphs) == [1, 4, 16]
+    assert [sorted(k[0][0][0] for k in g.graphs) for g in dp.graphed] == \
+        [[2, 8]] * 2
+
+
+def _flagship_width_state(device, remat):
+    """The flagship's widths at stage 6, batch 2, bf16, K2 and K3 on."""
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.state import create_train_state
+    from gansynth_tpu_torch.utils.config import Config
+
+    config = Config().with_overrides({
+        "model": {"compute_dtype": "bfloat16", "conv_kernel": "pallas",
+                  "dblock_kernel": "pallas", "remat": remat},
+        "train": {"batch_size": 2, "unroll": 3}})
+    state = create_train_state(config, seed=0, device=device)
+    waves, pitches = note_batch(6)
+    return (config, state, torch.from_numpy(waves).to(device),
+            torch.from_numpy(pitches.astype("int32")).to(device))
+
+
+def _flat(state):
+    return {net: torch.cat([p.detach().float().reshape(-1) for p in
+                            getattr(state, net).parameters()])
+            for net in ("g", "d", "ema")}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_cached_superstep_graph_equals_eager(cuda_device, remat):
+    """A 3-step cached superstep at the flagship's widths (stage 6, batch
+    2, bf16, K2 and K3 on; with and without remat) from one state: the
+    graph's G, D and EMA at distance 0 from the eager run's, the metrics
+    equal; a replay launches K2 and K3 as often as an eager step, by the
+    wrappers' counts and by name in a profiler trace of the replays."""
+    import copy
+
+    from gansynth_tpu_torch.kernels import launch_counts
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.profiling import kernel_launches
+
+    config, state, waves, pitches = _flagship_width_state(cuda_device,
+                                                          remat)
+    alphas = [0.25, 0.5, 1.0]
+    eager_state = copy.deepcopy(state)
+    eager = make_cached_superstep(config, 6, 6, graphs=False)
+    graphed = make_cached_superstep(config, 6, 6)
+    before = launch_counts()
+    _, m_eager = eager(eager_state, waves, pitches, alphas)
+    torch.cuda.synchronize()
+    per_step = {k: (v - before[k]) / 3 for k, v in launch_counts().items()}
+    _, m_graph = graphed(state, waves, pitches, alphas)
+    assert {k: float(v) for k, v in m_graph.items()} == \
+        {k: float(v) for k, v in m_eager.items()}
+    a, b = _flat(state), _flat(eager_state)
+    for net in a:
+        assert float((a[net] - b[net]).abs().max()) == 0.0, net
+    before = launch_counts()
+    graphed(state, waves, pitches, alphas)   # replays only
+    torch.cuda.synchronize()
+    replayed = {k: (v - before[k]) / 3 for k, v in launch_counts().items()}
+    assert replayed == per_step
+    # the kernels the replays ran on the device, counted by name
+    traced = kernel_launches(lambda: graphed(state, waves, pitches, alphas))
+    assert traced["conv3x3"] == 3 * (per_step["conv3x3_forward"]
+                                     + per_step["conv3x3_input_grad"]
+                                     + per_step["conv3x3_recompute"])
+    assert traced["dblock"] == 3 * (per_step["dblock"]
+                                    + per_step["dblock_recompute"])
+    assert per_step["conv3x3_forward"] + per_step["conv3x3_input_grad"] \
+        + per_step["conv3x3_recompute"] > 0 and per_step["dblock"] > 0
+    assert (per_step["conv3x3_recompute"] > 0) == remat
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(cuda_device):
+    """A function that reads a device value on the host cannot be
+    captured: the capture raises, and nothing runs it eagerly instead."""
+    from gansynth_tpu_torch.utils import graphs
+
+    x = torch.ones(4, device=cuda_device)
+    calls = []
+
+    def host_read():
+        calls.append(None)
+        return x * float(x.sum())
+
+    with pytest.raises(RuntimeError):
+        graphs.Graph(host_read, cuda_device, warmup=1)
+    assert len(calls) == 2   # the warm-up and the capture, no retry
+    assert not torch.cuda.is_current_stream_capturing()
+    assert float(torch.ones(2, device=cuda_device).sum()) == 2.0
