@@ -73,7 +73,9 @@ raises, so the exit code is non-zero):
     peak memory and the card;
 11. the offline CLI, through ``cli.main`` in this process on
     ``runs/flagship_r4``, writing only under ``build/smoke_offline/``,
-    with K1's and K2's launches counted per command: ``generate`` (3
+    with K1's and K2's launches counted per command (every render replays
+    its batch size's CUDA graph, the first at each size after the graph's
+    warm-up): ``generate`` (3
     pitches x 2 samples: 6 wavs), ``interpolate`` (9 steps: 9 wavs and
     ``morph.wav``), ``evaluate`` (the 61 pitches x ``EVAL_SAMPLES``,
     attribution; held to the JAX package's ``evaluate_sampler`` on the
@@ -104,21 +106,29 @@ raises, so the exit code is non-zero):
     of the bound reached) and its registers, spills and shared memory
     from ``ptxas``; the total seconds; and the result line;
 14. data parallel, run before phase 13's line, which lists its launches
-    (``dp_launches``, ``remat_launches``, ``remat_recompute_launches``):
+    (``dp_launches``, ``dp_graph_launches_traced_per_replay``,
+    ``remat_launches``, ``remat_recompute_launches``):
     ``cli train --data-parallel --synthetic --device-cache`` on phase
     10's seed (the flagship at 415000, kernels on) for ``LOOP_CADENCE``
     steps, first as a process of its own (it starts one worker per card
     in an NCCL group), then with ``--device-cache-layout shard`` and with
     ``--mbstd per-replica`` through ``cli.main`` in an NCCL group of one
-    rank set up here, K2's and K3's launches counted; each run's G, D and
+    rank set up here, K2's and K3's launches counted; every run replays
+    the step's CUDA graph, collectives captured; each run's G, D and
     EMA at 415010 within twice phase 10's A-vs-repeat distance of run A
     there (0 where the step repeats to the bit). The card has one GPU, so
     the group has one rank; the multi-rank numerics are the CPU tests'
-    (``tests/test_torch_parallel.py``). Then the stage-6 step with and
-    without the group in turns (``DP_TURNS``), the all-reduces a step
-    makes timed with CUDA events, and peak memory; the float32 stage-6
-    step with ``remat=True`` against ``remat=False`` from one state
-    (these steps run eagerly, as the group's step does):
+    (``tests/test_torch_parallel.py``, ``tests/test_torch_dp_graphs.py``).
+    Then NCCL's version; a ``GRAPH_STEPS``-step cached superstep in the
+    group under both cache layouts, graph against eager from one state (G,
+    D and EMA at distance 0, the metrics equal); the stage-6 step in turns
+    (``DP_TURNS``) as "no group, graph", "group, graph" and "group,
+    eager", each with its peak memory and, from a trace of ``DP_TRACED``
+    steps, the device's busy ms, its idle share, the API launches a step
+    (one ``cudaGraphLaunch`` in the graphed forms) and K2 and K3 counted
+    by name (69 and 4 a step); the all-reduces a step makes timed with
+    CUDA events; the float32 stage-6 step with ``remat=True`` against
+    ``remat=False`` from one state (eager):
     metric by metric (phase 9's bar), peak memory, ms a step and the
     recompute's launches; and ``serve --data-parallel`` on the flagship
     (``cli.make_service``): each request alone equal to the in-process
@@ -133,7 +143,10 @@ raises, so the exit code is non-zero):
     device's busy ms, its idle share, the CUDA API launches a batch and
     K1 counted by name on the device, once a batch in both forms, from
     ``torch.profiler``); the artifact is loaded once and its eager form
-    runs the same loaded programs; then a ``GRAPH_STEPS``-step cached
+    runs the same loaded programs; the keyed sampler (the loop's dumps,
+    ``generate``, ``interpolate``'s batch, ``evaluate``) at
+    ``KEYED_RUNGS`` 3, 9 and 61 in the same way (wave and image equal to
+    the bit, traced at 3 and 61); then a ``GRAPH_STEPS``-step cached
     superstep on the flagship's stage-6 state (bf16, K2 and K3 on,
     ``GRAPH_NOTES`` notes cached) as CUDA-graph replays and eagerly from
     one state: G, D and EMA at distance 0 and the metrics equal, K2's and
@@ -1054,10 +1067,13 @@ def offline_cli(card):
                           "--throughput-seconds", "1", "--output",
                           report_json],
     }
-    # K1 a render: generate 1 a sample, interpolate 1, evaluate 1 a round,
-    # roundtrip 1, validate-data's roundtrip 1
-    k1_want = {"generate": 2, "interpolate": 1, "evaluate": EVAL_SAMPLES,
-               "roundtrip": 1, "validate-data": 1}
+    # K1 a render, each replaying its batch size's CUDA graph; a command's
+    # first render at a batch size is its graph's warm-up and a replay
+    # (two launches): generate 2 + 1 (two samples at B=3), interpolate 2,
+    # evaluate 2 + 1 a later round, roundtrip 2, validate-data's
+    # roundtrip 2
+    k1_want = {"generate": 3, "interpolate": 2, "evaluate": EVAL_SAMPLES + 1,
+               "roundtrip": 2, "validate-data": 2}
     launches, seconds, printed = {}, {}, {}
     torch.cuda.reset_peak_memory_stats()
     for name, argv in runs.items():
@@ -1573,6 +1589,7 @@ DP_RUNS = {"replicate": [],
            "per_replica": ["--mbstd", "per-replica"]}
 DP_TURNS = 3   # in-turns rounds of the step timing, DP_TURN_STEPS steps each
 DP_TURN_STEPS = 3
+DP_TRACED = 2  # steps of each form under torch.profiler
 
 
 def _kernel_counts():
@@ -1595,39 +1612,59 @@ def _zero_kernel_counts():
 
 
 def dp_step_timing(device, mesh):
-    """The flagship's stage-6 step (bf16, kernels on) with and without the
-    process group, DP_TURNS rounds in turns of DP_TURN_STEPS steps each
-    (CUDA events), the group's peak memory, and the all-reduces a DP step
-    makes (G's and D's gradient buckets and the metrics) timed with CUDA
-    events, 20 repeats."""
+    """The flagship's stage-6 step (bf16, kernels on) in three forms from
+    one state: without the group as a CUDA graph, in the group as a CUDA
+    graph (its collectives captured) and in the group eagerly; DP_TURNS
+    rounds in turns of DP_TURN_STEPS steps each (CUDA events), each form's
+    peak memory, and from a trace of DP_TRACED steps of each the device's
+    busy ms and idle share, the API launches a step and K2 and K3 counted
+    by name (69 and 4 a step in every form, one ``cudaGraphLaunch`` a step
+    in the graphed ones); then the all-reduces a DP step makes (G's and
+    D's gradient buckets and the metrics) timed with CUDA events, 20
+    repeats."""
     import torch
 
     from gansynth_tpu_torch.train.step import make_train_step
+    from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
 
     config = training_config()
     state, stage, alpha, waves, pitches = training_setup(config, device)
-    # eager, as the group's step runs (a mesh's collectives stay out of
-    # CUDA graphs): the two differ by the group alone
-    fns = {"no_group": make_train_step(config, stage, graphs=False),
-           "group": make_train_step(config, stage, mesh)}
-    for fn in fns.values():
+    fns = {"no_group_graph": make_train_step(config, stage),
+           "group_graph": make_train_step(config, stage, mesh),
+           "group_eager": make_train_step(config, stage, mesh,
+                                          graphs=False)}
+    for fn in fns.values():   # the graphs' captures
         fn(state, waves, pitches, alpha)
-    times = {k: [] for k in fns}
-    peak = 0.0
-    for _ in range(DP_TURNS):
-        for name, fn in fns.items():
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(DP_TURN_STEPS):
-                fn(state, waves, pitches, alpha)
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(start.elapsed_time(end) / DP_TURN_STEPS)
-            if name == "group":
-                peak = max(peak, torch.cuda.max_memory_allocated() / 2 ** 30)
+    peak = dict.fromkeys(fns, 0.0)
+
+    def steps(name, n):
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            fns[name](state, waves, pitches, alpha)
+        peak[name] = max(peak[name],
+                         torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    times = in_turns({k: (lambda k=k: steps(k, DP_TURN_STEPS)) for k in fns},
+                     DP_TURNS, DP_TURN_STEPS)
+    forms = {}
+    for name in fns:
+        ms = statistics.median(times[name]["ms"])
+        forms[name] = {
+            "ms_per_step": spread(times[name]["ms"]),
+            "host_enqueue_ms_per_step": statistics.median(
+                times[name]["host_ms"]),
+            **busy(lambda name=name: steps(name, DP_TRACED), DP_TRACED, ms),
+            "peak_mem_gib": peak[name]}
+        traced = forms[name]["kernel_launches"]
+        want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP}
+        if any(traced[k] != v for k, v in want.items()):
+            raise AssertionError(f"DP step {name}: kernels a step on the "
+                                 f"device {traced}, want {want}")
+        graph_launches = forms[name]["api_launches"].get("cudaGraphLaunch",
+                                                         0)
+        if name.endswith("graph") and graph_launches != 1:
+            raise AssertionError(f"DP step {name}: {graph_launches} "
+                                 "cudaGraphLaunch a step")
     buckets = [torch.zeros(sum(p.numel() for p in net.parameters()),
                            device=device) for net in (state.g, state.d)]
     buckets.append(torch.zeros(16, device=device))
@@ -1641,14 +1678,65 @@ def dp_step_timing(device, mesh):
             mesh.all_reduce_mean(b)
     end.record()
     torch.cuda.synchronize()
-    del state
+    del state, fns
     torch.cuda.empty_cache()
-    return {"step_ms": times,
-            "median_step_ms": {k: statistics.median(v)
-                               for k, v in times.items()},
+    return {"forms": forms,
+            "median_step_ms": {k: v["ms_per_step"]["median"]
+                               for k, v in forms.items()},
             "all_reduce_ms_per_step": start.elapsed_time(end) / 20,
-            "all_reduce_bucket_elements": [b.numel() for b in buckets],
-            "peak_mem_gib_group": peak}
+            "all_reduce_bucket_elements": [b.numel() for b in buckets]}
+
+
+def dp_cached_graph(device, mesh):
+    """GRAPH_STEPS steps of the mesh's cached superstep on the flagship's
+    stage-6 state (bf16, K2 and K3 on, GRAPH_NOTES notes cached) in the
+    group, under both cache layouts: the CUDA graph against the eager run
+    from one state, G, D and EMA at distance 0 and the metrics equal; the
+    graph's first call (warm-up, capture, replays) and an eager call's
+    seconds and peak memory (the graph's private pool is allocated
+    there)."""
+    import copy
+
+    import torch
+
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+
+    out = {}
+    for layout in ("replicate", "shard"):
+        config = training_config().with_overrides(
+            {"train": {"device_cache_layout": layout}})
+        state, stage, alpha, _, _ = training_setup(config, device)
+        m = config.model
+        waves, pitches = note_batch(GRAPH_NOTES, m.pitch_min, m.pitch_max)
+        all_waves = torch.from_numpy(waves).to(device)
+        all_pitches = torch.from_numpy(pitches.astype("int32")).to(device)
+        states = {"eager": copy.deepcopy(state), "graph": state}
+        metrics, seconds, peak = {}, {}, {}
+        for kind in ("eager", "graph"):
+            step = make_cached_superstep(config, stage, GRAPH_NOTES, mesh,
+                                         graphs=kind == "graph")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            _, got = step(states[kind], all_waves, all_pitches,
+                          [alpha] * GRAPH_STEPS)
+            metrics[kind] = {k: float(v) for k, v in got.items()}
+            torch.cuda.synchronize()
+            seconds[kind] = time.perf_counter() - t
+            peak[kind] = torch.cuda.max_memory_allocated() / 2 ** 30
+        distance = {net: float((flat_params(getattr(states["graph"], net))
+                                - flat_params(getattr(states["eager"], net))
+                                ).abs().max()) for net in ("g", "d", "ema")}
+        if any(distance.values()) or metrics["graph"] != metrics["eager"]:
+            raise AssertionError(f"DP {layout} graph vs eager superstep: "
+                                 f"distance {distance}, metrics {metrics}")
+        out[layout] = {"distance_max_abs": distance, "seconds": seconds,
+                       "peak_mem_gib": peak,
+                       "d_loss": metrics["graph"]["d_loss"]}
+        del states, state
+        torch.cuda.empty_cache()
+    return out
 
 
 def remat_step(device):
@@ -1803,6 +1891,8 @@ def data_parallel(card, loop_ref, config, generator, stage):
     try:
         mesh = sharding.make_mesh()
         out["backend"] = dist.get_backend()
+        out["nccl_version"] = ".".join(map(str, torch.cuda.nccl.version()))
+        print(f"NCCL {out['nccl_version']}", flush=True)
         for name, flags in DP_RUNS.items():
             if name == "replicate":
                 continue
@@ -1820,7 +1910,12 @@ def data_parallel(card, loop_ref, config, generator, stage):
                                      f"{bad}")
             out["distance_max_abs"][name] = distance(run)
             shutil.rmtree(run)
+        t = time.perf_counter()
+        out["cached_graph"] = dp_cached_graph(torch.device("cuda"), mesh)
+        out["cached_graph_s"] = time.perf_counter() - t
+        t = time.perf_counter()
         out["timing"] = dp_step_timing(torch.device("cuda"), mesh)
+        out["timing_s"] = time.perf_counter() - t
     finally:
         dist.destroy_process_group()
     shutil.rmtree(LOOP_DIR, ignore_errors=True)
@@ -1839,6 +1934,7 @@ def data_parallel(card, loop_ref, config, generator, stage):
 # Phase 15: the CUDA graphs of the serving rungs and of the training
 # superstep, each held against the same work run eagerly.
 GRAPH_RUNGS = (1, 4, 16)
+KEYED_RUNGS = (3, 9, 61)   # the loop's dumps, interpolate, evaluate
 GRAPH_TURNS = 5         # in-turns rounds (eager, graph) of each served rung
 GRAPH_STEPS = 10        # the cached superstep held graph against eager
 GRAPH_TRAIN_TURNS = 3   # in-turns rounds of it, GRAPH_TURN_STEPS steps each
@@ -1864,13 +1960,32 @@ def _counting(fn, counts):
     return call
 
 
-def _graph_serving(eager, graphed, name):
-    """One served path at GRAPH_RUNGS: the graph's waves against the eager
-    batch's (to the bit), the capture's seconds, K1's launches a replay,
-    the host ms a batch in turns, and at rungs 1 and 16 a trace of each
-    form (device busy ms, idle share, API launches a batch, and K1 counted
-    by name on the device: once a batch in both forms). Returns the rows
-    and each form's K1 launches over the phase."""
+def _seeded_inputs(b):
+    return ([(7919 * i + b) & 0x7FFFFFFF for i in range(b)],
+            [24 + (7 * i) % 61 for i in range(b)])
+
+
+def _keyed_inputs(b):
+    from gansynth_tpu_torch.synth.random import seed_to_key
+
+    return seed_to_key(b), [24 + (7 * i) % 61 for i in range(b)]
+
+
+def _outputs(out):
+    """A sampler's outputs as a tuple: the wave, and a keyed sampler's
+    image."""
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _graph_serving(eager, graphed, name, rungs=GRAPH_RUNGS,
+                   inputs=_seeded_inputs, traced_rungs=(1, 16)):
+    """One sampler at ``rungs`` (``inputs(b)`` its arguments at batch b):
+    the graph's outputs against the eager batch's (to the bit), the
+    capture's seconds, K1's launches a replay, the host ms a batch in
+    turns, and at ``traced_rungs`` a trace of each form (device busy ms,
+    idle share, API launches a batch, and K1 counted by name on the
+    device: once a batch in both forms). Returns the rows and each form's
+    K1 launches over the phase."""
     import torch
 
     from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
@@ -1879,26 +1994,26 @@ def _graph_serving(eager, graphed, name):
     eager = _counting(eager, launched["eager"])
     graphed = _counting(graphed, launched["graph"])
     out = {}
-    for b in GRAPH_RUNGS:
-        seeds = [(7919 * i + b) & 0x7FFFFFFF for i in range(b)]
-        pitches = [24 + (7 * i) % 61 for i in range(b)]
-        want = eager(seeds, pitches)
+    for b in rungs:
+        args = inputs(b)
+        want = _outputs(eager(*args))
         torch.cuda.synchronize()
         t = time.perf_counter()
-        graphed(seeds, pitches)      # the rung's warm-up and capture
+        graphed(*args)      # the rung's warm-up and capture
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t
         before = launched["graph"]["synthesis_spectrum"]
-        got = graphed(seeds, pitches)
+        got = _outputs(graphed(*args))
         torch.cuda.synchronize()
         k1 = launched["graph"]["synthesis_spectrum"] - before
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"{name} B={b}: the graph's waves differ from the eager "
-                f"batch's by {float((got - want).abs().max()):.3e}")
+        for x, y in zip(got, want):
+            if not torch.equal(x, y):
+                raise AssertionError(
+                    f"{name} B={b}: the graph's outputs differ from the "
+                    f"eager batch's by {float((x - y).abs().max()):.3e}")
         if k1 != 1:
             raise AssertionError(f"{name} B={b}: {k1} K1 launches a replay")
-        calls = {k: (lambda fn=fn: fn(seeds, pitches).cpu())
+        calls = {k: (lambda fn=fn: _outputs(fn(*args))[0].cpu())
                  for k, fn in (("eager", eager), ("graph", graphed))}
         times = in_turns(calls, GRAPH_TURNS)
         row = {"equal": True, "capture_s": capture_s,
@@ -1906,7 +2021,7 @@ def _graph_serving(eager, graphed, name):
         for k, fn in calls.items():
             host = times[k]["host_ms"]
             row[k] = {"host_ms": spread(host)}
-            if b in (1, 16):
+            if b in traced_rungs:
                 row[k].update(busy(fn, 1, statistics.median(host), 3))
                 traced = row[k]["kernel_launches"]["synthesis_spectrum"]
                 if traced != 1:
@@ -2013,7 +2128,10 @@ def cuda_graphs_phase(card, config, generator, stage, device):
         ExportedSampler,
         load_sampler_artifact,
     )
-    from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
+    from gansynth_tpu_torch.synth.sampler import (
+        make_sampler,
+        make_seeded_sampler,
+    )
 
     art = os.path.join(EXPORT_DIR, "sampler.gsx")
     out = {"card": card}
@@ -2029,10 +2147,18 @@ def cuda_graphs_phase(card, config, generator, stage, device):
              make_seeded_sampler(config, generator, stage)),
             ("exported", exported_eager, exported)):
         serving[path], k1[path] = _graph_serving(eager, graphed, path)
+    out["serving_s"] = time.perf_counter() - t
+    # the keyed sampler of the loop's dumps (B=3), interpolate's batch (9)
+    # and evaluate's (61): the host's latents a static input
+    t = time.perf_counter()
+    serving["keyed"], k1["keyed"] = _graph_serving(
+        make_sampler(config, generator, stage, graphs=False),
+        make_sampler(config, generator, stage), "keyed", KEYED_RUNGS,
+        _keyed_inputs, (3, 61))
+    out["keyed_s"] = time.perf_counter() - t
     out["serving"] = serving
     out["k1_launches"] = {kind: sum(v[kind] for v in k1.values())
                           for kind in ("eager", "graph")}
-    out["serving_s"] = time.perf_counter() - t
     t = time.perf_counter()
     out["training"], launched = _graph_training(device)
     out["training_s"] = time.perf_counter() - t
@@ -2248,11 +2374,20 @@ def main() -> int:
           f"phase 10's run A " + ", ".join(
               f"{k} {v}" for k, v in dp["distance_max_abs"].items())
           + f" (bar 2x {dp['a_vs_repeat_max_abs']}); launches "
-          f"{dp['launches']}; step ms median "
-          f"{tm['median_step_ms']['group']:.1f} with the group, "
-          f"{tm['median_step_ms']['no_group']:.1f} without; all-reduce "
-          f"{tm['all_reduce_ms_per_step']:.3f} ms a step; peak "
-          f"{tm['peak_mem_gib_group']:.2f} GiB; remat f32 peak "
+          f"{dp['launches']}; NCCL {dp['nccl_version']}; cached superstep "
+          f"graph vs eager in the group, {GRAPH_STEPS} steps, distance "
+          + ", ".join(f"{k} {v['distance_max_abs']}"
+                      for k, v in dp["cached_graph"].items())
+          + f" ({dp['cached_graph_s']:.1f}s); step ms median in turns "
+          + ", ".join(
+              f"{k} {v['ms_per_step']['median']:.2f} (idle "
+              f"{v['idle_share']:.3f}, API launches {v['api_launches']}, "
+              f"K2/K3 traced {v['kernel_launches']['conv3x3']:.0f}/"
+              f"{v['kernel_launches']['dblock']:.0f}, peak "
+              f"{v['peak_mem_gib']:.2f} GiB)"
+              for k, v in tm["forms"].items())
+          + f" ({dp['timing_s']:.1f}s); all-reduce "
+          f"{tm['all_reduce_ms_per_step']:.3f} ms a step; remat f32 peak "
           f"{rm['remat']['peak_mem_gib']:.2f} GiB vs "
           f"{rm['plain']['peak_mem_gib']:.2f}, "
           f"{rm['remat']['ms_per_step']:.1f} vs "
@@ -2349,6 +2484,8 @@ def main() -> int:
         "export_launches": exp["pallas_launches"]["conv3x3"],
         "dp_launches": dp_count("conv3x3_forward")
         + dp_count("conv3x3_input_grad"),
+        "dp_graph_launches_traced_per_replay":
+            tm["forms"]["group_graph"]["kernel_launches"]["conv3x3"],
         "remat_launches": rm["remat"]["launches"]["conv3x3_forward"]
         + rm["remat"]["launches"]["conv3x3_input_grad"],
         "remat_recompute_launches":
@@ -2372,6 +2509,8 @@ def main() -> int:
         "launches": train["launches"]["dblock"],
         "loop_launches": loop_launches["dblock"],
         "dp_launches": dp_count("dblock"),
+        "dp_graph_launches_traced_per_replay":
+            tm["forms"]["group_graph"]["kernel_launches"]["dblock"],
         "remat_launches": rm["remat"]["launches"]["dblock"],
         "remat_recompute_launches":
             rm["remat"]["launches"]["dblock_recompute"],

@@ -648,7 +648,7 @@ def cmd_roundtrip(args) -> int:
     import torch
 
     from gansynth_tpu_torch.data.fixtures import synthesize_note
-    from gansynth_tpu_torch.ops.spectral import image_to_wave, wave_to_image
+    from gansynth_tpu_torch.ops.spectral import spectral_calls
     from gansynth_tpu_torch.utils.audio_io import read_wav, write_wav
     from gansynth_tpu_torch.utils.config import AudioConfig
     from gansynth_tpu_torch.utils.device import resolve_device, set_precision
@@ -666,10 +666,10 @@ def cmd_roundtrip(args) -> int:
         wave = np.pad(wave[:n], (0, max(0, n - wave.size)))
     else:
         wave = synthesize_note(args.pitch)
+    to_image, to_wave = spectral_calls(audio_cfg, device)
     with torch.inference_mode():
-        img = wave_to_image(torch.from_numpy(wave[None]).to(device),
-                            audio_cfg)
-        recon = image_to_wave(img, audio_cfg)[0].float().cpu().numpy()
+        img = to_image(torch.from_numpy(wave[None]))
+        recon = to_wave(img)[0].float().cpu().numpy()
     err = wave - recon
     snr = 10 * np.log10(np.sum(wave**2) / max(np.sum(err**2), 1e-30))
     print(f"mel-IF image: {tuple(img.shape)}; roundtrip SNR: {snr:.2f} dB "

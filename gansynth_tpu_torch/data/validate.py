@@ -146,7 +146,7 @@ def _superstep_and_roundtrip(files: Sequence[str], config: Config,
     import torch
 
     from gansynth_tpu_torch.data.native_tfrecord import make_native_iterator
-    from gansynth_tpu_torch.ops.spectral import image_to_wave, wave_to_image
+    from gansynth_tpu_torch.ops.spectral import spectral_calls
     from gansynth_tpu_torch.train.state import create_train_state
     from gansynth_tpu_torch.train.step import make_superstep
 
@@ -167,9 +167,9 @@ def _superstep_and_roundtrip(files: Sequence[str], config: Config,
 
     # The roundtrip is lossy at the mel pseudo-inverse, and more so for
     # broadband audio: the gate checks that it is finite, not a bar.
+    to_image, to_wave = spectral_calls(cfg.audio, device)
     with torch.inference_mode():
-        w = torch.from_numpy(wave).to(device)
-        recon = image_to_wave(wave_to_image(w, cfg.audio), cfg.audio)
+        recon = to_wave(to_image(torch.from_numpy(wave)))
         recon = recon.float().cpu().numpy()
     err = wave - recon
     snr = 10 * np.log10(np.sum(wave ** 2, axis=-1)

@@ -20,6 +20,9 @@ and stored float32; each is moved to a device once and cached
 (:func:`constant_cache`, which holds real tensors even when a
 ``torch.export`` trace is the first caller).
 
+On a card :func:`spectral_calls` runs each direction as one CUDA graph a
+batch size (the reference's two ``jax.jit``).
+
 Array layout as in the reference: waves ``[..., time]``, spectrograms
 ``[..., frames, bins]``, images ``[..., frames, bins, 2]`` with channel 0
 the scaled log-mel-magnitude and channel 1 the mel-IF.
@@ -382,3 +385,17 @@ def image_to_wave(image: torch.Tensor,
     logmelmag2 = scale(image[..., 0], -1.0, 1.0,
                        config.logmel_min, config.logmel_max)
     return melspecgrams_to_wave(logmelmag2, image[..., 1], config)
+
+
+def spectral_calls(config: AudioConfig, device, graphs: bool = True):
+    """``(to_image, to_wave)``: :func:`wave_to_image` and
+    :func:`image_to_wave` under ``config`` on ``device``, each one CUDA
+    graph a batch size on a card (unless ``graphs`` is False), as the
+    reference jits each of them; else eager. The roundtrip's two calls
+    (``cli roundtrip``, validate-data's check)."""
+    from gansynth_tpu_torch.utils.graphs import on_device
+
+    return (on_device(lambda wave: wave_to_image(wave, config), device,
+                      graphs),
+            on_device(lambda image: image_to_wave(image, config), device,
+                      graphs))

@@ -20,8 +20,12 @@ process group (NCCL on CUDA, gloo on the CPU):
   all-gather (:meth:`Mesh.gather`). So the DP step equals the one-process
   step on the same global batch, up to the order of float sums.
 
-The reference's ``jit_*_for_mesh`` have no counterpart: there is no
-program to place, only the step's own collectives (``train/step.py``).
+The reference's ``jit_*_for_mesh`` compile the step for the mesh; the
+port captures it, collectives included, into a CUDA graph on each rank
+(``train/step.py``). The ranks decide together when to capture and check
+together that every capture succeeded: :meth:`Mesh.any` runs on the host,
+over a gloo group made beside the NCCL group, so that neither decision
+makes the host wait for the card.
 ``make_mesh`` is a :class:`Mesh` of the current process group, and
 ``make_multislice_mesh`` the same ranks grouped (replica, data), whose
 gradient all-reduce runs inside each data group and then across
@@ -53,7 +57,9 @@ class Mesh:
     1-D mesh). ``grouped``: the mesh is a process group's
     (:func:`make_mesh`), whose collectives run also at one rank (a
     one-card NCCL run goes through them); a mesh made by hand without a
-    group must have one rank, and runs none."""
+    group must have one rank, and runs none. ``host_group``: the gloo
+    group of the host's own collectives beside an NCCL group (``None``:
+    the default group, gloo already)."""
 
     rank: int
     world: int
@@ -61,6 +67,7 @@ class Mesh:
     data_group: Optional[object] = None
     replica_group: Optional[object] = None
     grouped: bool = False
+    host_group: Optional[object] = None
 
     def __post_init__(self):
         if self.world > 1 and not self.grouped:
@@ -96,11 +103,12 @@ class Mesh:
 
     def any(self, flag: bool) -> bool:
         """True on every rank when ``flag`` is true on one of them (the
-        reference's ``process_allgather(...).max()``)."""
+        reference's ``process_allgather(...).max()``), agreed on the host:
+        the card's stream is not waited for."""
         if not self.grouped:
             return flag
-        t = torch.tensor([int(flag)], dtype=torch.int32, device=self.device)
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        t = torch.tensor([int(flag)], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.host_group)
         return bool(t.item())
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
@@ -188,7 +196,8 @@ def make_mesh(device: Optional[torch.device] = None) -> Mesh:
     """The 1-D data mesh of the current process group. The process's
     device is its current card (or the CPU under gloo). Raises when no
     group is set up: data parallelism never runs alone on one rank by
-    default."""
+    default. Every rank must call this (beside NCCL it creates the host's
+    gloo group)."""
     if not dist.is_initialized():
         raise RuntimeError(
             "data parallelism needs a process group: run under a launcher "
@@ -196,8 +205,10 @@ def make_mesh(device: Optional[torch.device] = None) -> Mesh:
     if device is None:
         device = (torch.device("cuda", torch.cuda.current_device())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
+    host = None if dist.get_backend() == "gloo" else dist.new_group(
+        backend="gloo")
     return Mesh(dist.get_rank(), dist.get_world_size(), torch.device(device),
-                grouped=True)
+                grouped=True, host_group=host)
 
 
 def make_multislice_mesh(num_slices: int,

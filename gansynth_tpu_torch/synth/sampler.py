@@ -7,19 +7,24 @@
     -> image_to_wave (the synthesis kernel on CUDA) -> 64000-sample wave
 
 Each ``make_*`` returns a plain function that runs under
-``torch.inference_mode`` on the generator's device. On a card the seeded
-samplers (the serving path) replay one CUDA graph per batch size
-(``utils/graphs.py``; the reference's ``jax.jit`` per rung): the latents
-drawn in the graph by ``seeded_latents_torch``, the one-hot, the
-generator, K1 and the iSTFT, with the seeds and pitches copied in and the
-wave out; on the CPU, or with ``graphs=False``, the same program runs
-eagerly. The keyed samplers stay eager. :class:`Sampler` holds
-a restored EMA generator with its config and stage, as the reference's
-does, for ``generate`` and ``evaluate``. :class:`SeededProgram` and
-:class:`LatentProgram` are the same bodies as modules that ``torch.export``
-traces (``synth/export.py``; the reference's ``_seeded_body`` and
-``_latent_body``): the seeded one draws its latents in torch ops inside
-the program.
+``torch.inference_mode`` on the generator's device. On a card every
+sampler replays one CUDA graph per batch size (``utils/graphs.py``; the
+reference's ``jax.jit`` of each): the seeded samplers (the serving path)
+draw their latents in the graph by ``seeded_latents_torch``, with the
+seeds and pitches copied in and the wave out; the keyed and latent
+samplers (the loop's sample dumps, ``generate``, ``interpolate``,
+``evaluate``) draw theirs on the host by threefry, as before, and copy
+the latents and the one-hot labels in, the wave and the image out. Each
+graph reads the generator's weights where they were at its capture, so a
+sampler captures again once they have moved (``GraphedCall``'s
+``watch``). On the CPU, or with ``graphs=False``, the same program runs
+eagerly; ``sample.graphed`` is the :class:`GraphedCall` or None.
+:class:`Sampler` holds a restored EMA generator with its config and
+stage, as the reference's does, for ``generate`` and ``evaluate``.
+:class:`SeededProgram` and :class:`LatentProgram` are the same bodies as
+modules that ``torch.export`` traces (``synth/export.py``; the
+reference's ``_seeded_body`` and ``_latent_body``): the seeded one draws
+its latents in torch ops inside the program.
 """
 
 from __future__ import annotations
@@ -91,40 +96,65 @@ def _device_of(generator: torch.nn.Module) -> torch.device:
     return next(generator.parameters()).device
 
 
+def _latent_call(config: Config, generator: torch.nn.Module, stage: int,
+                 graphs: bool):
+    """``call(z [B, D] f32, labels [B, num_pitches] f32) -> (wave, image)``
+    on the generator's device: one CUDA graph a batch size on a card
+    (unless ``graphs`` is False), captured again when the generator's
+    weights move; else eager."""
+    def body(z, labels):
+        return _render(config, generator, stage, z, labels)
+
+    return cuda_graphs.on_device(body, _device_of(generator), graphs,
+                                 watch=generator)
+
+
+def _graphed(call):
+    return call if isinstance(call, cuda_graphs.GraphedCall) else None
+
+
 def make_latent_sampler(config: Config, generator: torch.nn.Module,
-                        stage: Optional[int] = None):
+                        stage: Optional[int] = None, graphs: bool = True):
     """``sample(z [B, D], labels [B, num_pitches]) -> (wave [B, 64000],
-    image)``; inputs may be numpy arrays or tensors on any device."""
+    image)``; inputs may be numpy arrays or tensors on any device. On a
+    card each batch size replays its CUDA graph (``sample.graphed``)."""
     stage = config.model.num_stages - 1 if stage is None else stage
-    device = _device_of(generator)
+    call = _latent_call(config, generator, stage, graphs)
 
     @torch.inference_mode()
     def sample(z, labels):
-        z = torch.as_tensor(z, dtype=torch.float32, device=device)
-        labels = torch.as_tensor(labels, dtype=torch.float32, device=device)
-        return _render(config, generator, stage, z, labels)
+        return call(torch.as_tensor(z, dtype=torch.float32),
+                    torch.as_tensor(labels, dtype=torch.float32))
 
+    sample.graphed = _graphed(call)
     return sample
 
 
+def _keyed_inputs(config: Config, key: Key, pitches: Sequence[int]
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Host ``(z [B, D], labels [B, num_pitches])`` of a keyed batch: ``z =
+    jax.random.normal(key, (B, latent_dim))`` by the port's threefry."""
+    pitch = torch.as_tensor(list(pitches), dtype=torch.long)
+    z = torch.from_numpy(normal(key, (len(pitch), config.model.latent_dim)))
+    return z, pitch_to_onehot(pitch, config)
+
+
 def make_sampler(config: Config, generator: torch.nn.Module,
-                 stage: Optional[int] = None):
+                 stage: Optional[int] = None, graphs: bool = True):
     """The keyed sampler: ``sample(key, pitches [B]) -> (wave [B, 64000],
     image)`` with ``z = jax.random.normal(key, (B, latent_dim))`` drawn by
     the port's threefry (``gansynth_tpu/synth/sampler.py:_keyed_body``).
     The training loop's sample dumps call it with ``fold_in(key(seed),
-    step)``."""
+    step)``. On a card each batch size replays its CUDA graph, the host's
+    latents its static input (``sample.graphed``)."""
     stage = config.model.num_stages - 1 if stage is None else stage
-    device = _device_of(generator)
+    call = _latent_call(config, generator, stage, graphs)
 
     @torch.inference_mode()
     def sample(key: Key, pitches: Sequence[int]):
-        pitch = torch.as_tensor(list(pitches), dtype=torch.long, device=device)
-        z = torch.from_numpy(
-            normal(key, (pitch.shape[0], config.model.latent_dim))).to(device)
-        return _render(config, generator, stage, z,
-                       pitch_to_onehot(pitch, config))
+        return call(*_keyed_inputs(config, key, pitches))
 
+    sample.graphed = _graphed(call)
     return sample
 
 
@@ -148,7 +178,8 @@ def _seeded_call(config: Config, generator: torch.nn.Module, stage: int,
     """:class:`SeededProgram` on the generator's device: one CUDA graph a
     batch size on a card (unless ``graphs`` is False), else eager."""
     return cuda_graphs.on_device(SeededProgram(config, generator, stage),
-                                 _device_of(generator), graphs)
+                                 _device_of(generator), graphs,
+                                 watch=generator)
 
 
 def make_seeded_sampler(config: Config, generator: torch.nn.Module,
@@ -170,8 +201,7 @@ def make_seeded_sampler(config: Config, generator: torch.nn.Module,
     def sample(seeds: Sequence[int], pitches: Sequence[int]) -> torch.Tensor:
         return call(*seed_tensors(seeds, pitches))
 
-    sample.graphed = (call if isinstance(call, cuda_graphs.GraphedCall)
-                      else None)
+    sample.graphed = _graphed(call)
     return sample
 
 
@@ -196,25 +226,24 @@ def _split_render(calls, *inputs: torch.Tensor) -> torch.Tensor:
 
 
 def make_dp_sampler(config: Config, generator: torch.nn.Module, devices,
-                    stage: Optional[int] = None):
+                    stage: Optional[int] = None, graphs: bool = True):
     """The keyed sampler over ``devices`` (``gansynth_tpu/synth/sampler.py:
     make_dp_sampler``): ``sample(key, pitches [B]) -> wave [B, 64000]`` on
     the host, the batch's latents drawn from ``key`` as
     :func:`make_sampler` draws them and the batch split over one replica
-    of ``generator`` per device (:class:`LatentProgram`, eager). B must
-    divide the device count."""
+    of ``generator`` per device (:class:`LatentProgram`). B must divide
+    the device count. On cards each replica replays its own CUDA graph of
+    its share (``sample.graphed``, one per replica on a card)."""
     stage = config.model.num_stages - 1 if stage is None else stage
     calls = [cuda_graphs.on_device(LatentProgram(config, g, stage),
-                                   _device_of(g), graphs=False)
+                                   _device_of(g), graphs, watch=g)
              for g in _replicas(generator, devices)]
 
     @torch.inference_mode()
     def sample(key: Key, pitches: Sequence[int]) -> torch.Tensor:
-        pitch = torch.as_tensor(list(pitches), dtype=torch.long)
-        z = torch.from_numpy(normal(key, (len(pitch),
-                                          config.model.latent_dim)))
-        return _split_render(calls, z, pitch_to_onehot(pitch, config))
+        return _split_render(calls, *_keyed_inputs(config, key, pitches))
 
+    sample.graphed = [c for c in calls if _graphed(c)]
     return sample
 
 
@@ -240,8 +269,7 @@ def make_dp_seeded_sampler(config: Config, generator: torch.nn.Module,
     def sample(seeds: Sequence[int], pitches: Sequence[int]) -> torch.Tensor:
         return _split_render(calls, *seed_tensors(seeds, pitches))
 
-    sample.graphed = [c for c in calls
-                      if isinstance(c, cuda_graphs.GraphedCall)]
+    sample.graphed = [c for c in calls if _graphed(c)]
     return sample
 
 
@@ -249,14 +277,16 @@ class Sampler:
     """``sampler(key, pitches) -> (wave [B, 64000], image)`` over
     :func:`make_sampler`: the restored EMA ``generator`` with its
     ``config`` and ``stage`` (the final stage when None), as the
-    reference's ``Sampler`` (``gansynth_tpu/synth/sampler.py:191``)."""
+    reference's ``Sampler`` (``gansynth_tpu/synth/sampler.py:191``). On a
+    card each batch size replays its CUDA graph (:attr:`graphed`)."""
 
     def __init__(self, config: Config, generator: torch.nn.Module,
-                 stage: Optional[int] = None):
+                 stage: Optional[int] = None, graphs: bool = True):
         self.config = config
         self.generator = generator
         self.stage = config.model.num_stages - 1 if stage is None else stage
-        self._sample = make_sampler(config, generator, self.stage)
+        self._sample = make_sampler(config, generator, self.stage, graphs)
+        self.graphed = self._sample.graphed
 
     def __call__(self, key: Key, pitches: Sequence[int]
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -11,9 +11,11 @@ never crosses a stage change or the release step, and the old graph is
 dropped (its memory freed) when the key changes. A graph is captured at
 the first chunk after the state is made or restored, since it holds the
 parameters' addresses. Checkpoints, ``ema.npz``, the sample dumps and the
-STOP check run between supersteps, eagerly. Resume restores the full state and recomputes the stage, alpha and
-release phase from the restored step, so a restart lands where it left
-off.
+STOP check run between supersteps. The sample dumps replay the stage's
+keyed sampler's CUDA graph on a card (one sampler a stage; it captures
+again if the EMA's weights have moved). Resume restores the full state
+and recomputes the stage, alpha and release phase from the restored
+step, so a restart lands where it left off.
 
 Three data routes, as in the reference: ``data_iter`` (numpy batches, one
 per step, fast-forwarded on resume by ``step - data_position``),
@@ -41,12 +43,14 @@ batch. A batch of the global size is sliced to the rank's rows; a batch
 of the local size (``--multihost``, where each process decodes only its
 slice) is taken as is. The device cache is placed per
 ``device_cache_layout``: a full copy on every rank, or rank r's N/W
-examples under ``"shard"`` (N must divide the world size). Only rank 0
+examples under ``"shard"`` (N must divide the world size). On cards
+every rank replays the step's CUDA graph, collectives included, as on
+one card (``train/step.py``). Only rank 0
 writes ``metrics.jsonl``, checkpoints, ``ema.npz`` and the sample dumps;
 every rank restores. The STOP check of a group of ranks runs at the log
 cadence's crossings and is a max over the ranks' file checks (the
-reference's ``process_allgather``), so a STOP file on any rank stops every
-rank at the same step.
+reference's ``process_allgather``, on the host), so a STOP file on any
+rank stops every rank at the same step.
 """
 
 from __future__ import annotations

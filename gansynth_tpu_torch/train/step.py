@@ -33,12 +33,23 @@ buffer; after the K steps they are averaged on the device (the
 reference's ``jnp.mean`` over the scan axis). On a card each factory's
 step is captured once into a CUDA graph (``utils/graphs.py``) for the
 state it was given (a graph holds the parameters' addresses) and replayed
-K times with no host work between the replays. The CPU, ``graphs=False``
-and a data-parallel ``mesh`` (whose collectives stay out of graphs) run
-the same code eagerly, step by step. ``state.step`` and the Adams' counts
-stay host integers and advance by K once the K steps are enqueued; the
-host never waits for the device (the caller reads the metrics at its log
-crossings).
+K times with no host work between the replays. The CPU and
+``graphs=False`` run the same code eagerly, step by step. ``state.step``
+and the Adams' counts stay host integers and advance by K once the K
+steps are enqueued; the host never waits for the device (the caller
+reads the metrics at its log crossings).
+
+A data-parallel ``mesh`` is captured too, its collectives (the gradient
+buckets, the metrics' mean, the critic's all-gather and its backward, the
+sharded cache's gather) inside the graph, in the ``"thread_local"``
+capture mode. The warm-up before a capture is a real step, which runs
+those collectives, so the ranks capture together: each says whether its
+graph is missing or stale, and all capture when one does
+(``Mesh.any``, on the host); after the capture they check together that
+every rank's succeeded, so a failure on one rank raises on all of them.
+The sharded cache's rows come from their owners at a fixed shape
+(:func:`_gather_from_owners`), from the global batch's indices staged in
+each step's row.
 
 ``fused_critic`` ("none", "pair", "all") only schedules the reference's
 critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
@@ -252,16 +263,17 @@ def _copy_in(dst: torch.Tensor, array: np.ndarray) -> None:
 class _Rows:
     """The per-step values of up to ``kmax`` steps, on ``device``. Row k
     holds step k's z_d [b, D], u [b], z_g [b, D], alpha and the critic's
-    and the generator's bias corrections as float32 bits, and with
-    ``indices`` the batch's example indices (int32). :attr:`pos`, on the
+    and the generator's bias corrections as float32 bits, then
+    ``indices`` example indices (int32): this rank's batch's, or the
+    global batch's for a sharded cache. :attr:`pos`, on the
     device, is the row the next step reads; each step writes its metrics
     to row ``pos`` of :attr:`metrics` and advances it."""
 
     def __init__(self, device, batch: int, latent_dim: int, kmax: int,
-                 n_metrics: int, indices: bool):
+                 n_metrics: int, indices: int):
         self.batch, self.latent_dim = batch, latent_dim
         self.floats = 2 * batch * latent_dim + batch + _SCALARS
-        self.width = self.floats + (batch if indices else 0)
+        self.width = self.floats + indices
         self.rows = torch.zeros((kmax, self.width), dtype=torch.int32,
                                 device=device)
         self.pos = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -309,15 +321,15 @@ def _state_tensors(state: TrainState):
 
 class _StepProgram:
     """One factory's step: :func:`_make_core` fed from :class:`_Rows`. On a
-    card without a ``mesh`` (and with ``graphs``) it is captured once into
-    a CUDA graph per set of addresses (the state's tensors, the rows and
-    the static inputs) and replayed once a step; otherwise it runs eagerly,
-    the same code."""
+    card (with ``graphs``) it is captured once into a CUDA graph per set of
+    addresses (the state's tensors, the rows and the static inputs) and
+    replayed once a step; otherwise it runs eagerly, the same code."""
 
     def __init__(self, config: Config, stage: int, mesh, graphs: bool):
         self.core, self.names = _make_core(config, stage, mesh)
         self.latent_dim = config.model.latent_dim
-        self.graphs = graphs and mesh is None
+        self.mesh = mesh
+        self.graphs = graphs
         self.rows: Optional[_Rows] = None
         self.static: Dict[str, torch.Tensor] = {}
         self.graph: Optional[cuda_graphs.Graph] = None
@@ -352,20 +364,30 @@ class _StepProgram:
                     t.copy_(s)
             self.rows.pos.zero_()
 
-        return cuda_graphs.Graph(lambda: self._body(state, fetch), device,
-                                 before_capture=restore)
+        try:
+            graph = cuda_graphs.Graph(
+                lambda: self._body(state, fetch), device,
+                before_capture=restore,
+                mode="global" if self.mesh is None else "thread_local")
+        except Exception:
+            if self.mesh is not None:
+                self.mesh.any(True)   # the other ranks raise too
+            raise
+        if self.mesh is not None and self.mesh.any(False):
+            raise RuntimeError("the step's CUDA graph capture failed on "
+                               "another rank")
+        return graph
 
     def run(self, state, rows: np.ndarray, fetch, device, kmax: int,
-            batch: int, indices: bool, static=()) -> Dict[str, torch.Tensor]:
-        """Enqueue ``len(rows)`` steps of ``state``; ``fetch(idx, pos, i)``
-        gives step i's ``(wave, pitch)`` from the row's device indices or
-        position (``i`` is read only by the eager path). Advances the
-        host's step and Adam counts; returns the steps' mean metrics."""
+            batch: int, indices: int, static=()) -> Dict[str, torch.Tensor]:
+        """Enqueue ``len(rows)`` steps of ``state``; ``fetch(idx, pos)``
+        gives a step's ``(wave, pitch)`` from its row's ``indices`` device
+        indices or from its position. Advances the host's step and Adam
+        counts; returns the steps' mean metrics."""
         k = len(rows)
         r = self.rows
         if (r is None or r.rows.shape[0] < k or r.batch != batch
-                or r.rows.device != device
-                or (r.width > r.floats) != indices):
+                or r.rows.device != device or r.width - r.floats != indices):
             r = self.rows = _Rows(device, batch, self.latent_dim,
                                   max(k, kmax), len(self.names), indices)
             self.graph = None
@@ -379,16 +401,18 @@ class _StepProgram:
             key = tuple(t.data_ptr() for t in
                         (*_state_tensors(state), *static,
                          *self.static.values()))
-            if self.graph is None or key != self.addresses:
+            stale = self.graph is None or key != self.addresses
+            if self.mesh is not None:   # the warm-up runs collectives
+                stale = self.mesh.any(stale)
+            if stale:
                 self.graph = None   # frees its pool before the next capture
-                self.graph = self._capture(
-                    state, lambda idx, pos: fetch(idx, pos, 0), device)
+                self.graph = self._capture(state, fetch, device)
                 self.addresses = key
             for _ in range(k):
                 self.graph.replay()
         else:
-            for i in range(k):
-                self._body(state, lambda idx, pos, i=i: fetch(idx, pos, i))
+            for _ in range(k):
+                self._body(state, fetch)
         state.step += k
         state.d_opt.count += k
         state.g_opt.count += k
@@ -406,8 +430,8 @@ def _streamed(prog: _StepProgram, waves: torch.Tensor, pitches: torch.Tensor,
                      device)
     wb[:len(waves)].copy_(waves)
     pb[:len(pitches)].copy_(pitches)
-    return lambda idx, pos, i: (wb.index_select(0, pos)[0],
-                                pb.index_select(0, pos)[0])
+    return lambda idx, pos: (wb.index_select(0, pos)[0],
+                             pb.index_select(0, pos)[0])
 
 
 def make_train_step(config: Config, stage: int, mesh=None,
@@ -437,7 +461,7 @@ def make_train_step(config: Config, stage: int, mesh=None,
                            config.model.latent_dim, mesh, given)
         fetch = _streamed(prog, wave[None], torch.as_tensor(pitch)[None], 1)
         metrics = prog.run(state, rows, fetch, wave.device, 1,
-                           wave.shape[0], False)
+                           wave.shape[0], 0)
         metrics["alpha"] = torch.tensor(float(alpha))
         return state, metrics
 
@@ -465,8 +489,7 @@ def make_superstep(config: Config, stage: int, mesh=None,
                            mesh)
         size = max(kmax, len(alphas))
         fetch = _streamed(prog, waves, torch.as_tensor(pitches), size)
-        metrics = prog.run(state, rows, fetch, waves.device, size, local,
-                           False)
+        metrics = prog.run(state, rows, fetch, waves.device, size, local, 0)
         metrics["alpha"] = torch.tensor(alphas[-1])
         return state, metrics
 
@@ -511,23 +534,20 @@ def cached_batch_indices(rng: Tuple[int, int], step: int, batch: int,
 
 
 def _gather_from_owners(mesh, all_waves: torch.Tensor,
-                        all_pitches: torch.Tensor, idx: np.ndarray,
+                        all_pitches: torch.Tensor, idx: torch.Tensor,
                         num_examples: int):
-    """This rank's rows of the batch at global example indices ``idx``
-    from a cache sharded over the ranks (rank r holds examples ``[r N/W,
-    (r+1) N/W)``): each rank writes the rows it owns into a zero batch,
-    and one all-reduce of the bits (each element has one owner, so the
-    sum is exact) gives every rank the batch; O(B T) a step."""
+    """This rank's rows of the batch at global example indices ``idx`` (a
+    device tensor [B]) from a cache sharded over the ranks (rank r holds
+    examples ``[r N/W, (r+1) N/W)``): each rank takes all B rows at their
+    local offsets and zeroes those it does not own, and one all-reduce of
+    the bits (each element has one owner, so the sum is exact) gives every
+    rank the batch. Every shape is fixed by B, whatever the indices, so a
+    CUDA graph holds it; O(B T) a step."""
     per = num_examples // mesh.world
-    owner, local = idx // per, idx % per
-    mine = torch.from_numpy(np.flatnonzero(owner == mesh.rank)).to(
-        all_waves.device)
-    take = torch.from_numpy(local[owner == mesh.rank].astype(np.int64)).to(
-        all_waves.device)
-    waves = all_waves.new_zeros((len(idx), all_waves.shape[1]))
-    pitches = all_pitches.new_zeros(len(idx))
-    waves.index_copy_(0, mine, all_waves.index_select(0, take))
-    pitches.index_copy_(0, mine, all_pitches.index_select(0, take))
+    mine = (idx // per) == mesh.rank
+    local = idx % per
+    waves = torch.where(mine[:, None], all_waves.index_select(0, local), 0)
+    pitches = torch.where(mine, all_pitches.index_select(0, local), 0)
     bits = torch.cat([waves.view(torch.int32).reshape(-1),
                       pitches.to(torch.int32)])
     mesh.all_reduce_sum(bits)
@@ -576,13 +596,13 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
         idx = [cached_batch_indices(state.rng, state.step + i, batch,
                                     num_examples, law)
                for i in range(len(alphas))]
-        if sharded:   # eager: the owners' rows depend on the host's indices
-            def fetch(dev_idx, pos, i):
+        if sharded:   # the global batch's indices: each row has an owner
+            def fetch(dev_idx, pos):
                 return _gather_from_owners(mesh, all_waves, all_pitches,
-                                           idx[i], num_examples)
-            staged = None
+                                           dev_idx, num_examples)
+            staged = idx
         else:
-            def fetch(dev_idx, pos, i):
+            def fetch(dev_idx, pos):
                 return (all_waves.index_select(0, dev_idx),
                         all_pitches.index_select(0, dev_idx))
             staged = [x if mesh is None else x[mesh.rows(batch)]
@@ -590,7 +610,7 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
         rows = _stage_rows(state, alphas, batch, config.model.latent_dim,
                            mesh, indices=staged)
         metrics = prog.run(state, rows, fetch, all_waves.device,
-                           max(kmax, len(alphas)), local, staged is not None,
+                           max(kmax, len(alphas)), local, len(staged[0]),
                            static=(all_waves, all_pitches))
         metrics["alpha"] = torch.tensor(alphas[-1])
         return state, metrics

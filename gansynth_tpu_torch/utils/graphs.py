@@ -22,11 +22,19 @@ are taken back (a capture launches nothing) and added again at every
 replay (``kernels.launch_counts``); the warm-up's launches are real and
 stay counted.
 
-:class:`GraphedCall` is ``fn(*tensors) -> tensor`` with one graph per
-input shape (a serving rung), all in one pool: the host copies the inputs
-into the graph's static buffers, replays it and gets a copy of the
-output. :func:`on_device` picks it on a card and the eager call of the
-same ``fn`` elsewhere.
+:class:`GraphedCall` is ``fn(*tensors) -> tensor or tuple of tensors``
+with one graph per input shape (a serving rung), all in one pool: the
+host copies the inputs into the graph's static buffers, replays it and
+gets a copy of each output. Given a module to ``watch``, it captures
+anew when that module's parameters or buffers move to other addresses
+(a graph holds the addresses it read). :func:`on_device` picks it on a
+card and the eager call of the same ``fn`` elsewhere.
+
+A capture's error mode (``capture_error_mode`` of ``torch.cuda.graph``)
+is ``"global"`` unless the caller asks for another: a data-parallel step
+captures ``"thread_local"``, because NCCL's watchdog thread may query
+CUDA events while the step is captured, and in the global mode such a
+call from another thread fails the capture.
 
 A capture or a replay that fails raises; nothing falls back to eager
 execution. Only CUDA has graphs: a caller on the CPU calls its function
@@ -35,6 +43,7 @@ directly.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Dict, Optional
 
@@ -65,12 +74,12 @@ def _warm_up(fn: Callable, device: torch.device, calls: int) -> None:
         current.wait_stream(side)
 
 
-def _capture(fn: Callable, device: torch.device, pool):
+def _capture(fn: Callable, device: torch.device, pool, mode: str):
     """``(graph, outputs)``: ``fn()`` captured on ``device`` into ``pool``
-    (a fresh private pool when None)."""
+    (a fresh private pool when None) in the error mode ``mode``."""
     with torch.cuda.device(device):
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
+        with torch.cuda.graph(graph, pool=pool, capture_error_mode=mode):
             outputs = fn()
     return graph, outputs
 
@@ -85,10 +94,12 @@ class Graph:
     :attr:`capture_seconds` is the capture's host time, the device's
     synchronisation at its start included.
     ``pool`` shares another graph's memory pool (:meth:`pool`): safe
-    where the graphs never run at once, as on one stream."""
+    where the graphs never run at once, as on one stream. ``mode`` is the
+    capture's error mode (see the module's docstring)."""
 
     def __init__(self, fn: Callable, device, *, warmup: int = 1, pool=None,
-                 before_capture: Optional[Callable[[], None]] = None):
+                 before_capture: Optional[Callable[[], None]] = None,
+                 mode: str = "global"):
         self.device = torch.device(device)
         _warm_up(fn, self.device, warmup)
         if before_capture is not None:
@@ -96,7 +107,8 @@ class Graph:
         before = launch_counts()
         t0 = time.perf_counter()
         try:
-            self._graph, self.outputs = _capture(fn, self.device, pool)
+            self._graph, self.outputs = _capture(fn, self.device, pool,
+                                                 mode)
             self.capture_seconds = time.perf_counter() - t0
         finally:
             after = launch_counts()
@@ -112,14 +124,15 @@ class Graph:
         return self.outputs
 
 
-def on_device(fn: Callable, device, graphs: bool = True) -> Callable:
+def on_device(fn: Callable, device, graphs: bool = True,
+              watch: Optional[torch.nn.Module] = None) -> Callable:
     """``fn(*tensors)`` on ``device``, the inputs on any device: a
     :class:`GraphedCall` on a card (unless ``graphs`` is False), else
     ``fn`` run eagerly on the inputs moved to ``device``. Either way the
     same ``fn`` runs."""
     device = torch.device(device)
     if graphs and available(device):
-        return GraphedCall(fn, device)
+        return GraphedCall(fn, device, watch=watch)
 
     def call(*args: torch.Tensor):
         return fn(*(a.to(device) for a in args))
@@ -128,19 +141,36 @@ def on_device(fn: Callable, device, graphs: bool = True) -> Callable:
 
 
 class GraphedCall:
-    """``fn(*tensors) -> tensor`` on ``device`` with one :class:`Graph` per
-    input signature (shapes and types), captured on its first call; the
-    graphs share one pool. The inputs may live on any device; the result
-    is a fresh tensor on ``device``."""
+    """``fn(*tensors) -> tensor or tuple of tensors`` on ``device`` with one
+    :class:`Graph` per input signature (shapes and types), captured on its
+    first call; the graphs share one pool. The inputs may live on any
+    device; the results are fresh tensors on ``device``. With ``watch``,
+    every graph is dropped (and captured again at its next call) when the
+    module's parameters or buffers are no longer where the graphs read
+    them."""
 
-    def __init__(self, fn: Callable, device, warmup: int = 1):
+    def __init__(self, fn: Callable, device, warmup: int = 1,
+                 watch: Optional[torch.nn.Module] = None):
         self.fn = fn
         self.device = torch.device(device)
         self.warmup = warmup
+        self.watch = watch
         self.graphs: Dict[tuple, tuple] = {}
         self._pool = None
+        self._addresses = self._watched()
 
-    def __call__(self, *args: torch.Tensor) -> torch.Tensor:
+    def _watched(self) -> tuple:
+        if self.watch is None:
+            return ()
+        return tuple(t.data_ptr() for t in itertools.chain(
+            self.watch.parameters(), self.watch.buffers()))
+
+    def __call__(self, *args: torch.Tensor):
+        addresses = self._watched()
+        if addresses != self._addresses:
+            self.graphs.clear()   # frees their pool before the next capture
+            self._pool = None
+            self._addresses = addresses
         key = tuple((tuple(a.shape), a.dtype) for a in args)
         entry = self.graphs.get(key)
         if entry is None:
@@ -153,4 +183,7 @@ class GraphedCall:
         static, graph = entry
         for buf, a in zip(static, args):
             buf.copy_(a, non_blocking=True)
-        return graph.replay().clone()
+        out = graph.replay()
+        if torch.is_tensor(out):
+            return out.clone()
+        return tuple(t.clone() for t in out)

@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
 an exported sampler that launches K1 from its program, and the CUDA
-graphs of the serving rungs and the training superstep against the same
-work run eagerly.
+graphs of the serving rungs, the keyed samplers and the training
+superstep (on one card, and in an NCCL group of one rank) against the
+same work run eagerly.
 
 Marked ``gpu``; each test skips unless ``torch.cuda.is_available()``. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -412,6 +413,66 @@ def test_nccl_world_one_step_equals_no_group(cuda_device):
     assert group <= 2 * repeat, (group, repeat)
 
 
+@pytest.fixture
+def nccl_mesh(cuda_device):
+    """A mesh of an NCCL group of one rank on this card (the collectives
+    run), destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from gansynth_tpu_torch.parallel import sharding
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    sharding.initialize_multihost(cuda_device, f"tcp://127.0.0.1:{port}",
+                                  0, 1)
+    try:
+        yield sharding.make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["replicate", "shard"])
+def test_nccl_world_cached_superstep_graph_equals_eager(nccl_mesh, layout):
+    """The mesh's 3-step cached superstep at the flagship's widths (stage
+    6, batch 2, bf16, K2 and K3 on) in an NCCL group of one rank: the
+    CUDA graph, collectives captured, ends where the eager run ends, to
+    the bit in G, D, EMA and the metrics; a replay launches K2 and K3 as
+    an eager step does."""
+    import copy
+
+    from gansynth_tpu_torch.kernels import launch_counts
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+
+    config, state, waves, pitches = _flagship_width_state(
+        nccl_mesh.device, False)
+    config = config.with_overrides(
+        {"train": {"device_cache_layout": layout}})
+    alphas = [0.25, 0.5, 1.0]
+    eager_state = copy.deepcopy(state)
+    eager = make_cached_superstep(config, 6, 6, nccl_mesh, graphs=False)
+    graphed = make_cached_superstep(config, 6, 6, nccl_mesh)
+    before = launch_counts()
+    _, m_eager = eager(eager_state, waves, pitches, alphas)
+    torch.cuda.synchronize()
+    per_step = {k: (v - before[k]) / 3 for k, v in launch_counts().items()}
+    _, m_graph = graphed(state, waves, pitches, alphas)
+    assert graphed.program.graph is not None
+    assert {k: float(v) for k, v in m_graph.items()} == \
+        {k: float(v) for k, v in m_eager.items()}
+    a, b = _flat(state), _flat(eager_state)
+    for net in a:
+        assert float((a[net] - b[net]).abs().max()) == 0.0, net
+    before = launch_counts()
+    graphed(state, waves, pitches, alphas)   # replays only
+    torch.cuda.synchronize()
+    assert {k: (v - before[k]) / 3 for k, v in launch_counts().items()} == \
+        per_step
+
+
 @pytest.mark.gpu
 def test_remat_lowers_the_step_peak_memory(cuda_device):
     """The stage-6 step at the flagship's widths, batch 2, float32: with
@@ -494,6 +555,57 @@ def test_serving_graphs_equal_eager_at_each_rung(cuda_device, tmp_path):
     assert sorted(k[0][0][0] for k in graphed.graphed.graphs) == [1, 4, 16]
     assert [sorted(k[0][0][0] for k in g.graphs) for g in dp.graphed] == \
         [[2, 8]] * 2
+
+
+@pytest.fixture
+def deterministic_cudnn(cuda_device):
+    """The card, with cuDNN on its deterministic algorithms for the test."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield cuda_device
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [3, 61])
+def test_keyed_sampler_graphs_equal_eager(deterministic_cudnn, batch):
+    """The keyed sampler (the loop's sample dumps, ``generate``,
+    ``evaluate``) and the latent sampler (``interpolate``) replay one CUDA
+    graph a batch size: wave and image equal to the eager call's to the
+    bit, K1 once a replay. cuDNN runs its deterministic algorithms: at
+    B=61 the narrow float32 generator's eager calls otherwise differ from
+    each other in their last bits, graph or not."""
+    from gansynth_tpu_torch.synth.random import seed_to_key
+    from gansynth_tpu_torch.synth.sampler import (
+        make_latent_sampler,
+        make_sampler,
+    )
+
+    config, gen = _tiny_generator(deterministic_cudnn)
+    key = seed_to_key(batch)
+    pitches = [24 + (7 * i) % 61 for i in range(batch)]
+    graphed, eager = make_sampler(config, gen, 2), make_sampler(
+        config, gen, 2, graphs=False)
+    want = eager(key, pitches)
+    graphed(key, pitches)   # the batch size's capture
+    before = K.synthesis_spectrum.launches
+    got = graphed(key, pitches)
+    torch.cuda.synchronize()
+    assert K.synthesis_spectrum.launches == before + 1
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    z = torch.randn(batch, config.model.latent_dim,
+                    generator=torch.Generator().manual_seed(batch))
+    labels = torch.eye(config.model.num_pitches)[
+        torch.tensor(pitches) - config.model.pitch_min]
+    latent = make_latent_sampler(config, gen, 2)
+    for _ in range(2):
+        got = latent(z, labels)
+        want = make_latent_sampler(config, gen, 2, graphs=False)(z, labels)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
 
 
 def _flagship_width_state(device, remat):

@@ -20,12 +20,15 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
 - The launch-count bookkeeping of ``utils/graphs.py`` with the capture
   simulated: a capture's counts are taken back, each replay adds them, a
   failed capture raises with the counts restored.
-- With the capture simulated (a replay reruns the captured function),
-  the seeded sampler (one device, and a graph per data-parallel replica)
-  and the cached superstep run their graph path on the CPU: equal to the
-  eager path to the bit, one capture per rung, replica or state, a failed
-  capture raises and leaves the state as it was. Off a card
-  ``graphs.on_device`` runs the function eagerly.
+- With the capture simulated (a replay reruns the captured function,
+  ``torch_graph_sim.py``), the seeded sampler (one device, and a graph per
+  data-parallel replica), the keyed, latent and data-parallel keyed
+  samplers (wave and image), the roundtrip's two calls and the cached
+  superstep run their graph path on the CPU: equal to the eager path to
+  the bit, one capture per rung, replica or state, a sampler captures
+  again when its generator's weights move, a failed capture raises and
+  leaves the state as it was. Off a card ``graphs.on_device`` runs the
+  function eagerly.
 - The names by which ``utils/profiling.py`` counts the port's kernels in
   a trace (what ``chip_smoke.py`` holds the replays' counts to) are the
   device functions of ``kernels/csrc``, and match no other kernel.
@@ -68,6 +71,7 @@ from make_torch_checkpoint_fixture import (
     STAGE,
     state_arrays,
 )
+import torch_graph_sim
 from torch_step_parity import check, configs, waves
 from torch_threads import two_torch_threads  # noqa: F401
 
@@ -127,7 +131,7 @@ def test_staged_rows_are_the_host_draws(law):
         assert sorted(np.concatenate(idx[:3]).tolist()[1:]) == \
             sorted(range(n))   # positions 15..19: one whole epoch
     rows = tstep._stage_rows(state, alphas, batch, latent, indices=idx)
-    r = tstep._Rows(torch.device("cpu"), batch, latent, k, 1, True)
+    r = tstep._Rows(torch.device("cpu"), batch, latent, k, 1, batch)
     r.load(rows)
     b1, b2 = cfg.train.adam_beta1, cfg.train.adam_beta2
     for i in range(k):
@@ -214,66 +218,18 @@ def _launch():
     return "outputs"
 
 
-class _FakeGraph:
-    """A captured ``fn``: a replay reruns it with its launches' counting
-    left to the bookkeeping (``replays`` counts them)."""
-
-    def __init__(self, fn, outputs=None):
-        self.fn, self.outputs, self.replays = fn, outputs, 0
-
-    def replay(self):
-        self.replays += 1
-        saved = launch_counts()
-        out = self.fn()
-        for k, v in saved.items():   # a replay's counts are the Graph's
-            _set_count(k, v)
-        if torch.is_tensor(self.outputs):
-            self.outputs.copy_(out)
-
-    def pool(self):
-        return "pool"
-
-
-def _set_count(name, value):
-    if name.startswith("conv3x3_"):
-        K2.conv3x3_same.launches[name[len("conv3x3_"):]] = value
-    elif name == "dblock":
-        K3.fused_dblock.launches = value
-    elif name == "dblock_recompute":
-        K3.fused_dblock.recompute_launches = value
-    else:
-        K1.synthesis_spectrum.launches = value
-
-
 def _delta(after, before):
     return {k: after[k] - before[k] for k in after if after[k] != before[k]}
 
 
 @pytest.fixture
 def simulated(monkeypatch):
-    """CUDA graphs on the CPU: the warm-up runs ``fn``; the capture runs
-    its Python (the wrappers count, as they do in a real capture) and a
-    replay runs it again. ``simulated["dry"] = True`` makes the capture
-    leave the state alone instead (it runs nothing, as on a card)."""
-    info = {"captures": 0, "dry": False, "fail": None}
-
-    def capture(fn, device, pool):
-        info["captures"] += 1
-        if info["fail"]:
-            if not info["dry"]:
-                fn()
-            raise RuntimeError(info["fail"])
-        if info["dry"]:
-            return _FakeGraph(fn), None
-        out = fn()
-        return _FakeGraph(fn, out), out
-
-    monkeypatch.setattr(graphs, "available", lambda device: True)
-    monkeypatch.setattr(graphs, "_warm_up",
-                        lambda fn, device, calls: [fn() for _ in
-                                                   range(calls)])
-    monkeypatch.setattr(graphs, "_capture", capture)
-    return info
+    """CUDA graphs on the CPU (``torch_graph_sim.install``): the warm-up
+    runs ``fn``; the capture runs its Python (the wrappers count, as they
+    do in a real capture) and a replay runs it again.
+    ``simulated["dry"] = True`` makes the capture leave the state alone
+    instead (it runs nothing, as on a card)."""
+    return torch_graph_sim.install(monkeypatch.setattr)
 
 
 def test_graph_launch_bookkeeping(simulated):
@@ -342,6 +298,98 @@ def test_dp_seeded_sampler_graphs_each_replica(simulated):
     assert simulated["captures"] == 2   # one graph per replica
     with pytest.raises(ValueError, match="divide"):
         graphed(seeds[:3], pitches[:3])
+
+
+def test_keyed_samplers_graphs_equal_eager(simulated):
+    """``make_sampler``, ``Sampler``, ``make_latent_sampler`` and
+    ``make_dp_sampler`` replay one graph a batch size (a replica): wave and
+    image equal to the eager sampler's to the bit; the latents come from
+    the host's threefry as before. A generator whose weights moved is
+    captured again."""
+    from gansynth_tpu_torch.synth.random import normal, seed_to_key
+    from gansynth_tpu_torch.synth.sampler import (
+        Sampler,
+        make_dp_sampler,
+        make_latent_sampler,
+        make_sampler,
+    )
+
+    cfg = Config().with_overrides(NARROW)
+    torch.manual_seed(0)
+    g = Generator(cfg.model).eval()
+    key = seed_to_key(5)
+    pitches = [36, 60, 84, 48]
+    eager = make_sampler(cfg, g, 1, graphs=False)
+    assert eager.graphed is None
+    for graphed in (make_sampler(cfg, g, 1), Sampler(cfg, g, stage=1)):
+        before = simulated["captures"]
+        for _ in range(2):
+            for b in (3, 1):
+                got, want = graphed(key, pitches[:b]), eager(key,
+                                                             pitches[:b])
+                assert len(got) == 2
+                for x, y in zip(got, want):
+                    assert torch.equal(x, y)
+        assert simulated["captures"] - before == 2   # one a batch size
+        assert sorted(k[0][0][0] for k in graphed.graphed.graphs) == [1, 3]
+
+    latent = make_latent_sampler(cfg, g, 1)
+    latent_eager = make_latent_sampler(cfg, g, 1, graphs=False)
+    z = normal(key, (4, cfg.model.latent_dim))
+    labels = np.eye(cfg.model.num_pitches, dtype=np.float32)[[3, 9, 20, 1]]
+    for _ in range(2):
+        for x, y in zip(latent(z, labels), latent_eager(z, labels)):
+            assert torch.equal(x, y)
+    assert len(latent.graphed.graphs) == 1
+
+    before = simulated["captures"]
+    dp = make_dp_sampler(cfg, g, ["cpu", "cpu"], 1)
+    dp_eager = make_dp_sampler(cfg, g, ["cpu", "cpu"], 1, graphs=False)
+    assert dp_eager.graphed == [] and len(dp.graphed) == 2
+    # each replica renders its half of the batch's latents at batch 2
+    z = normal(key, (4, cfg.model.latent_dim))
+    labels = torch.nn.functional.one_hot(
+        torch.tensor(pitches) - cfg.model.pitch_min,
+        cfg.model.num_pitches).float()
+    want = torch.cat([latent_eager(z[:2], labels[:2])[0],
+                      latent_eager(z[2:], labels[2:])[0]])
+    for _ in range(2):
+        assert torch.equal(dp(key, pitches), want)
+        assert torch.equal(dp_eager(key, pitches), want)
+    assert simulated["captures"] - before == 2   # one graph a replica
+
+    # the generator's weights move (a restore into new tensors): the
+    # graphs are dropped and captured again, and read the new weights
+    sample = make_sampler(cfg, g, 1)
+    sample(key, pitches)
+    before = simulated["captures"]
+    with torch.no_grad():
+        for p in g.parameters():
+            p.data = p.data * 0.5
+    got = sample(key, pitches)
+    assert simulated["captures"] - before == 1
+    for x, y in zip(got, make_sampler(cfg, g, 1, graphs=False)(key,
+                                                               pitches)):
+        assert torch.equal(x, y)
+
+
+def test_roundtrip_graphs_equal_eager(simulated):
+    """``spectral_calls``: ``wave_to_image`` and ``image_to_wave`` as one
+    graph each, equal to the eager calls to the bit."""
+    from gansynth_tpu_torch.ops.spectral import spectral_calls
+    from gansynth_tpu_torch.utils.config import AudioConfig
+
+    audio = AudioConfig()
+    wave = torch.from_numpy(note_batch(2)[0])
+    to_image, to_wave = spectral_calls(audio, "cpu")
+    eager_image, eager_wave = spectral_calls(audio, "cpu", graphs=False)
+    assert isinstance(to_image, graphs.GraphedCall)
+    assert not isinstance(eager_image, graphs.GraphedCall)
+    for _ in range(2):
+        image = to_image(wave)
+        assert torch.equal(image, eager_image(wave))
+        assert torch.equal(to_wave(image), eager_wave(image))
+    assert simulated["captures"] == 2
 
 
 def test_on_device_is_eager_off_a_card():
