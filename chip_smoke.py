@@ -10,8 +10,9 @@ raises, so the exit code is non-zero):
 
 1. the card's ``name, power.limit`` line from ``nvidia-smi``;
 2. build the three kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
-   critic block) with plain ``nvcc``, one process each, all at once, and
-   print their ``ptxas`` lines;
+   critic block) and the training step's mark kernels with plain
+   ``nvcc``, one process each, all at once, and print their ``ptxas``
+   lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
    of the service, at the training loop's sample batch (``SAMPLE_BATCH``)
    and at the offline CLI's batches (``OFFLINE_BATCHES``: 8, 9, 61), and
@@ -158,7 +159,30 @@ raises, so the exit code is non-zero):
     name on the device, 69 and 4 a step in both forms; peak memory and
     the capture's seconds. Each kernel's launches over the phase are
     counted for the graph and the eager form apart. One
-    ``{"cuda_graphs": ...}`` line.
+    ``{"cuda_graphs": ...}`` line;
+16. the training step's mark kernels (``kernels/csrc/step_marks.cu``),
+    run before phase 13's line: the five marks launched on the card
+    around matmuls, in the order ``start`` to ``end``, beside the plain
+    version on the CPU (``marks.step_mark_plain``) over the same sequence,
+    their integer slots held exactly (1 step, nothing ``between`` at the
+    first mark, every other phase above 0); a second step after the host
+    holds the card idle for ``MARK_HELD_S`` (``between`` at least that
+    long in both), and a third after the anchor (``between`` under a
+    tenth of it in both; the anchor alone moves no total). Then a
+    ``MARKS_STEPS``-step cached superstep at the flagship's stage-6
+    shapes (bf16, K2 and K3 on), captured, and three more under
+    ``torch.profiler``: two queued as the training loop runs them, then
+    one after the host syncs and sleeps ``MARK_HELD_S``. For the second
+    and the third, each phase's time between the mark kernels' starts in
+    the trace against the program's totals (copied on the stream): the
+    critic and the generator within ``MARKS_REL``, the other phases within
+    ``MARKS_ABS_US`` a step (``between`` after the host's hold within
+    ``MARKS_HELD_US``), the marks in the trace taken from its end (the
+    profiler, as it starts, may miss the first call's first kernels; the
+    line gives how many it holds); K2's launches by shape
+    (``kernels.launch_shapes``)
+    over the second, ``GRAPH_K2_PER_STEP`` a step, equal to the trace's
+    K2 kernels by name. One ``{"step_marks": ...}`` line.
 
 A replayed graph launches nothing through the wrappers: their counts add
 what the capture counted at each replay (``kernels.add_launch_counts``).
@@ -192,7 +216,7 @@ F32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
-KERNELS = ("synthesis_spectrum", "conv3x3", "dblock")
+KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "step_marks")
 # (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
 # the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
 # conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
@@ -2171,6 +2195,179 @@ def cuda_graphs_phase(card, config, generator, stage, device):
     return out
 
 
+# Phase 16: the training step's mark kernels against their plain version,
+# and the phases they keep against a profiler's trace of a graphed
+# superstep at the flagship's shapes.
+MARK_SPIN = 1024       # the square matmul run between two eager marks
+MARK_HELD_S = 0.02     # the host holds the card idle this long
+MARKS_STEPS = 10       # steps a call of the traced superstep
+MARKS_REL = 0.02       # critic, generator: trace against the totals
+MARKS_ABS_US = 20.0    # every other phase: trace against totals, us a step
+MARKS_HELD_US = 20.0   # between after the host's hold, us
+
+
+def _marks_eager(device):
+    """The five marks on the card beside the plain version, three steps;
+    see phase 16 in the module's docstring."""
+    import torch
+
+    from gansynth_tpu_torch.kernels import marks
+
+    between = marks.PHASES.index("between")
+    totals = {"card": marks.new_totals(device),
+              "plain": marks.new_totals("cpu")}
+    work = {"card": torch.ones((MARK_SPIN,) * 2, device=device),
+            "plain": torch.ones((MARK_SPIN // 4,) * 2)}
+    mark = {"card": marks.step_mark, "plain": marks.step_mark_plain}
+
+    def slots():
+        torch.cuda.synchronize()
+        return {kind: t.tolist() for kind, t in totals.items()}
+
+    def one_step():
+        for kind in totals:
+            for m in range(len(marks.MARKS)):
+                mark[kind](totals[kind], m)
+                if m < len(marks.MARKS) - 1:
+                    work[kind] = work[kind] @ work[kind] / MARK_SPIN
+        return slots()
+
+    first = one_step()
+    for kind, got in first.items():
+        if (got[marks.STEPS] != 1 or got[between] != 0
+                or not all(got[i] > 0 for i in range(between))
+                or got[marks.LAST] <= 0):
+            raise AssertionError(f"step marks, {kind}, first step: {got}")
+    time.sleep(MARK_HELD_S)
+    held = one_step()
+    time.sleep(MARK_HELD_S)
+    for kind in totals:
+        mark[kind](totals[kind], marks.ANCHOR)
+    anchored = slots()
+    after = one_step()
+    out = {}
+    for kind in totals:
+        gaps = [held[kind][between], after[kind][between]
+                - held[kind][between]]
+        moved = [i for i in range(marks.LAST)
+                 if anchored[kind][i] != held[kind][i]]
+        if (held[kind][marks.STEPS] != 2 or after[kind][marks.STEPS] != 3
+                or gaps[0] < MARK_HELD_S * 1e9
+                or gaps[1] >= MARK_HELD_S * 1e8 or moved):
+            raise AssertionError(
+                f"step marks, {kind}: held {held[kind]}, anchored "
+                f"{anchored[kind]}, after {after[kind]}")
+        out[kind] = {"first_step": first[kind][:marks.LAST],
+                     "between_held_ns": gaps[0],
+                     "between_anchored_ns": gaps[1]}
+    return out
+
+
+def _marks_traced(device):
+    """A graphed superstep at the flagship's stage-6 shapes under the
+    profiler: the phases between the mark kernels in the trace against
+    the program's totals, queued and after the host's hold, and K2's
+    record by shape against the trace; see phase 16."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.kernels import launch_shapes, marks
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.profiling import mark_spans, port_kernel
+
+    config = training_config()
+    state, stage, alpha, _, _ = training_setup(config, device)
+    m = config.model
+    waves, pitches = note_batch(GRAPH_NOTES, m.pitch_min, m.pitch_max)
+    waves = torch.from_numpy(waves).to(device)
+    pitches = torch.from_numpy(pitches.astype("int32")).to(device)
+    superstep = make_cached_superstep(config, stage, GRAPH_NOTES)
+
+    def call():
+        superstep(state, waves, pitches, [alpha] * MARKS_STEPS)
+
+    call()   # the capture
+    torch.cuda.synchronize()
+    totals = superstep.program.phases.totals
+    snaps = [torch.empty(totals.shape, dtype=totals.dtype, pin_memory=True)
+             for _ in range(3)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        snaps[0].copy_(totals, non_blocking=True)
+        shapes = launch_shapes()
+        call()
+        snaps[1].copy_(totals, non_blocking=True)
+        torch.cuda.synchronize()
+        recorded = {k: v - shapes.get(k, 0)
+                    for k, v in launch_shapes().items()
+                    if v != shapes.get(k, 0)}
+        time.sleep(MARK_HELD_S)
+        call()
+        snaps[2].copy_(totals, non_blocking=True)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = sorted((e for e in prof.events() if e.device_type == cuda),
+                    key=lambda e: e.time_range.start)
+    seen = [e for e in events if "step_mark_" in e.name]
+    n = len(marks.MARKS) * MARKS_STEPS
+    # The second and third calls' marks and the first call's last end, in
+    # the marks' order. Counted from the trace's end: the profiler may
+    # miss the first call's first kernels as it starts.
+    order = [marks.MARKS[i % len(marks.MARKS)] for i in range(-1, 2 * n)]
+    found = [next((m for m in marks.MARKS if f"step_mark_{m}" in e.name),
+                  e.name) for e in seen[-2 * n - 1:]]
+    if found != order:
+        raise AssertionError(
+            f"{len(seen)} mark kernels in the trace, want {3 * n}: "
+            + ", ".join(e.name for e in seen[:3]) + " ... "
+            + ", ".join(e.name for e in seen[-3:]))
+    out = {"marks_traced": len(seen), "marks_launched": 3 * n}
+    for name, lo, (a, b) in (("queued", -2 * n, snaps[:2]),
+                             ("held", -n, snaps[1:])):
+        # this call's marks and the call before's last end mark
+        traced = mark_spans(seen[lo - 1:lo + n or None])
+        delta = (b - a).tolist()
+        rows = {}
+        for phase, us in traced.items():
+            device_us = delta[marks.PHASES.index(phase)] / 1e3
+            rows[phase] = [us / MARKS_STEPS, device_us / MARKS_STEPS]
+            if phase in ("critic", "generator"):
+                ok = abs(us - device_us) <= MARKS_REL * device_us
+            elif name == "held" and phase == "between":
+                ok = abs(us - device_us) <= MARKS_HELD_US
+            else:
+                ok = abs(us - device_us) <= MARKS_ABS_US * MARKS_STEPS
+            if not ok or delta[marks.STEPS] != MARKS_STEPS:
+                raise AssertionError(
+                    f"step marks, {name} superstep, {phase}: trace "
+                    f"{us:.2f} us, totals {device_us:.2f} us over "
+                    f"{delta[marks.STEPS]} steps")
+        out[name] = rows
+    lo, hi = seen[-2 * n].time_range.start, seen[-n].time_range.start
+    k2 = sum(port_kernel(e.name) == "conv3x3" for e in events
+             if lo <= e.time_range.start < hi)
+    if not sum(recorded.values()) == k2 == GRAPH_K2_PER_STEP * MARKS_STEPS:
+        raise AssertionError(f"K2 launches: record {recorded}, trace {k2}")
+    out["k2_shapes_per_step"] = sorted(
+        [list(k), v / MARKS_STEPS] for k, v in recorded.items())
+    return out
+
+
+def step_marks_phase(card, device, resources):
+    """Phase 16: the mark kernels against the plain version, and the
+    phases they keep against a profiler's trace. One ``{"step_marks":
+    ...}`` line."""
+    import torch
+
+    out = {"card": card, "eager": _marks_eager(device),
+           "traced": _marks_traced(device), "resources": resources}
+    torch.cuda.empty_cache()
+    print(json.dumps({"step_marks": out}), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2428,6 +2625,25 @@ def main() -> int:
           f"{tr['launches_per_step']}, on the device (traced) graph "
           f"{tr['graph']['kernel_launches']} eager "
           f"{tr['eager']['kernel_launches']} ({card})")
+
+    t = time.perf_counter()
+    sm = step_marks_phase(card, device, resources["step_marks"])
+    phase("step marks", t, "first step on the card "
+          f"{sm['eager']['card']['first_step']}, plain "
+          f"{sm['eager']['plain']['first_step']}; between after a "
+          f"{1e3 * MARK_HELD_S:.0f} ms hold card/plain "
+          f"{sm['eager']['card']['between_held_ns'] / 1e6:.3f}/"
+          f"{sm['eager']['plain']['between_held_ns'] / 1e6:.3f} ms, "
+          f"anchored {sm['eager']['card']['between_anchored_ns'] / 1e3:.1f}/"
+          f"{sm['eager']['plain']['between_anchored_ns'] / 1e3:.1f} us; "
+          "traced superstep, us a step trace/totals: " + "; ".join(
+              f"{name} " + ", ".join(f"{p} {t_us:.2f}/{d_us:.2f}"
+                                     for p, (t_us, d_us) in rows.items())
+              for name, rows in sm["traced"].items()
+              if name in ("queued", "held"))
+          + f"; {sm['traced']['marks_traced']} of "
+          f"{sm['traced']['marks_launched']} mark kernels in the trace"
+          + f"; K2 by shape a step {sm['traced']['k2_shapes_per_step']}")
 
     def dp_count(name):
         return sum(launches[name] for launches in dp["launches"].values())

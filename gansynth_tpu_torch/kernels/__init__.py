@@ -8,7 +8,8 @@ the first launch of a kernel.
 counts the launch apart from the model's own.
 
 :func:`launch_counts` and :func:`add_launch_counts` read and move every
-wrapper's launch counters at once, so that a CUDA graph
+wrapper's launch counters at once, and :func:`launch_shapes` and
+:func:`add_launch_shapes` K2's launches by shape, so that a CUDA graph
 (``utils/graphs.py``) can take back what its capture counted (a capture
 launches nothing) and add it at every replay.
 """
@@ -68,3 +69,23 @@ def add_launch_counts(delta: Dict[str, int]) -> None:
             synthesis.launches += v
         else:
             raise KeyError(k)
+
+
+def launch_shapes() -> Dict[tuple, int]:
+    """K2's launches by ``(role, B, H, W, C_in, C_out)``, ``role`` as in
+    :func:`launch_counts` (``"forward"``, ``"input_grad"``,
+    ``"recompute"``)."""
+    conv, _, _ = _counted()
+    return dict(conv.shapes)
+
+
+def add_launch_shapes(delta: Dict[tuple, int]) -> None:
+    """Add ``delta`` (keyed as :func:`launch_shapes`) to K2's record; a
+    shape whose count comes to 0 leaves it."""
+    shapes = _counted()[0].shapes
+    for k, v in delta.items():
+        n = shapes.get(k, 0) + v
+        if n:
+            shapes[k] = n
+        else:
+            shapes.pop(k, None)

@@ -84,8 +84,18 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
                  height, width, c_in, c_out, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 kernel launch failed: cudaError {err}")
-    conv3x3_same.launches["recompute" if is_recomputing() else role] += 1
+    _count(role, batch, height, width, c_in, c_out)
     return y
+
+
+def _count(role: str, *shape: int) -> None:
+    """One launch under ``role`` (``"recompute"`` inside a rematerialised
+    forward) in ``conv3x3_same.launches``, and of its ``(role, B, H, W,
+    C_in, C_out)`` in ``conv3x3_same.shapes``."""
+    role = "recompute" if is_recomputing() else role
+    conv3x3_same.launches[role] += 1
+    key = (role, *shape)
+    conv3x3_same.shapes[key] = conv3x3_same.shapes.get(key, 0) + 1
 
 
 def _conv_cpu(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
@@ -143,7 +153,8 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     type. Launches the CUDA kernel for a CUDA tensor (counted in
     ``conv3x3_same.launches["forward"]``; the launches of its backward
     passes in ``["input_grad"]``, and those of a rematerialised forward,
-    ``ModelConfig.remat``, in ``["recompute"]``); takes :func:`conv3x3_plain` for a CPU
+    ``ModelConfig.remat``, in ``["recompute"]``; and by role and shape in
+    ``conv3x3_same.shapes``); takes :func:`conv3x3_plain` for a CPU
     tensor. Differentiable to any order.
     """
     if x.ndim != 4 or tuple(weight.shape[1:]) != (x.shape[-1], 3, 3):
@@ -153,3 +164,4 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 conv3x3_same.launches = {"forward": 0, "input_grad": 0, "recompute": 0}
+conv3x3_same.shapes = {}   # (role, B, H, W, C_in, C_out) -> launches

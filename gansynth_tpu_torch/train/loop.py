@@ -27,7 +27,10 @@ step, so the stream needs no position).
 
 At a log crossing the loop reads one scalar of the metrics (``.item()``
 waits for the device) before it reads the clock, so ``steps_per_sec``
-counts finished steps.
+counts finished steps. There it also reads the current step program's
+phases (``train/step.py:StepPhases``) and logs, as ms a step since the
+last log, each phase's device time (``phase_ms/<phase>``) and the host's
+staging (``host_stage_ms``); with a mesh, rank 0's.
 
 Graceful stop: a ``STOP`` file in the workdir (``cli stop``) makes the
 loop checkpoint at the next superstep boundary and return; the file is
@@ -63,6 +66,7 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from gansynth_tpu_torch.kernels import marks
 from gansynth_tpu_torch.parallel.sharding import (
     cache_sharding,
     make_mesh,
@@ -99,6 +103,22 @@ def _dump_samples(config, state, sample, step: int, workdir: str,
                   wave, config.audio.sample_rate)
     if logger is not None:
         logger.log_artifacts(step, waves, images, config.audio.sample_rate)
+
+
+def _phase_ms(now: Dict[str, int],
+              before: Optional[Dict[str, int]]) -> Dict[str, float]:
+    """ms a step of each phase (``phase_ms/<phase>``) and of the host's
+    staging (``host_stage_ms``) between two readings of a program's
+    :meth:`StepPhases.read` (``before`` None: since the program was
+    made); nothing when no step ended between them."""
+    before = before or dict.fromkeys(now, 0)
+    steps = now["steps"] - before["steps"]
+    if steps <= 0:
+        return {}
+    ms = {f"phase_ms/{p}": now[f"{p}_ns"] - before[f"{p}_ns"]
+          for p in marks.PHASES}
+    ms["host_stage_ms"] = now["host_stage_ns"] - before["host_stage_ns"]
+    return {k: v / 1e6 / steps for k, v in ms.items()}
 
 
 def _crossed(prev: int, new: int, every: int) -> bool:
@@ -304,6 +324,7 @@ def train(
         return seg_start   # past the ladder: the final stage's segment
 
     factory_stage = None
+    read_phases = None   # (program, its phases at the last log)
     step_idx = start
     while step_idx < end:
         stage, _ = schedule.stage_and_alpha(step_idx)
@@ -327,16 +348,16 @@ def train(
             np.float32)
 
         if device_dataset is not None:
-            state, metrics = get_step_fn(stage, True, released)(
-                state, all_waves, all_pitches, alphas)
+            step_fn = get_step_fn(stage, True, released)
+            state, metrics = step_fn(state, all_waves, all_pitches, alphas)
         elif k == 1 and unroll == 1:
             wave, pitch = next(data_iter)
             if not torch.is_tensor(wave):   # prefetched under a mesh
                 batch = config.train.batch_for_stage(stage)
                 wave = to_device(wave, np.float32, batch)
                 pitch = to_device(pitch, np.int32, batch)
-            state, metrics = get_step_fn(stage, False, released)(
-                state, wave, pitch, float(alphas[0]))
+            step_fn = get_step_fn(stage, False, released)
+            state, metrics = step_fn(state, wave, pitch, float(alphas[0]))
         else:
             batch = config.train.batch_for_stage(stage)
             batches = [next(data_iter) for _ in range(k)]
@@ -345,8 +366,8 @@ def train(
             pitches = to_device(np.stack([np.asarray(b[1])
                                           for b in batches]), np.int32,
                                 batch, axis=1)
-            state, metrics = get_step_fn(stage, True, released)(
-                state, waves, pitches, alphas)
+            step_fn = get_step_fn(stage, True, released)
+            state, metrics = step_fn(state, waves, pitches, alphas)
         steps_since_log += k
 
         new_step = step_idx + k
@@ -359,6 +380,11 @@ def train(
             metrics["steps_per_sec"] = steps_since_log / max(now - t_last,
                                                              1e-9)
             t_last, steps_since_log = now, 0
+            prog = step_fn.program
+            phases = prog.phases.read()
+            metrics.update(_phase_ms(phases, read_phases[1] if read_phases
+                                     and read_phases[0] is prog else None))
+            read_phases = (prog, phases)
             logger.log(new_step, metrics, stage=stage)
         stop_now = _stop_requested(step_idx, new_step)
         if lead and checkpointer is not None and (

@@ -39,6 +39,12 @@ and the Adams' counts stay host integers and advance by K once the K
 steps are enqueued; the host never waits for the device (the caller
 reads the metrics at its log crossings).
 
+Each program keeps where its steps spend their time (:class:`StepPhases`,
+``program.phases``): five marks a step, kernels that the graph replays
+with the step, add the device's time to the frontend, the critic update,
+the generator update, the EMA and the gap between steps; the host's
+staging runs under the span ``superstep.stage``.
+
 A data-parallel ``mesh`` is captured too, its collectives (the gradient
 buckets, the metrics' mean, the critic's all-gather and its backward, the
 sharded cache's gather) inside the graph, in the ``"thread_local"``
@@ -59,7 +65,9 @@ passes as separate critic calls under each of them.
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -67,6 +75,7 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from gansynth_tpu_torch.kernels import marks
 from gansynth_tpu_torch.models.layers import downsample_avg
 from gansynth_tpu_torch.ops.harmonic import image_pitch_logits
 from gansynth_tpu_torch.ops.spectral import wave_to_image
@@ -151,9 +160,11 @@ _SCALARS = 5
 
 def _make_core(config: Config, stage: int, mesh):
     """``(core, metric names)``: ``core(state, wave, pitch, alpha, z_d, u,
-    z_g, bc_d, bc_g) -> metrics``, one step's device work on tensors
+    z_g, bc_d, bc_g, mark) -> metrics``, one step's device work on tensors
     (``bc_d``, ``bc_g``: each Adam's two bias corrections), updating the
-    state's tensors in place."""
+    state's tensors in place; ``mark(name)`` is called at the frontend's,
+    the critic update's and the generator update's ends
+    (:class:`StepPhases`)."""
     m, t = config.model, config.train
     if t.fused_critic not in ("none", "pair", "all"):
         raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
@@ -200,20 +211,20 @@ def _make_core(config: Config, stage: int, mesh):
         state.g_opt.update(*bc)
         return out
 
-    def core(state, wave, pitch, alpha, z_d, u, z_g, bc_d, bc_g):
+    def core(state, wave, pitch, alpha, z_d, u, z_g, bc_d, bc_g, mark):
         labels = pitch_to_onehot(pitch, config)
-        with torch.no_grad(), record_function("spectral_frontend"):
+        with torch.no_grad():
             real = real_image_for_stage(wave.float(), stage, config)
+        mark("frontend")
 
         # ----- critic update -----
-        with record_function("discriminator_update"):
-            metrics = critic_update(state, real, labels, z_d, u, alpha, bc_d)
+        metrics = critic_update(state, real, labels, z_d, u, alpha, bc_d)
+        mark("critic")
 
         # ----- generator update (fresh latents, refreshed critic) -----
-        with record_function("generator_update"):
-            metrics.update(generator_update(state, labels, z_g, alpha, bc_g))
-        with record_function("ema_update"):
-            ema_update(state.ema, state.g, t.ema_decay)
+        metrics.update(generator_update(state, labels, z_g, alpha, bc_g))
+        mark("generator")
+        ema_update(state.ema, state.g, t.ema_decay)
         metrics = {k: v.detach().float() for k, v in metrics.items()}
         if mesh is not None:
             metrics = _mean_over_ranks(metrics, mesh)
@@ -307,6 +318,66 @@ class _Rows:
         return {name: cols[j].mean(0) for j, name in enumerate(names)}
 
 
+class StepPhases:
+    """Where a program's steps spend their time, kept by the program.
+
+    Device: five marks a step (``kernels/marks.py``: ``start`` before the
+    row is read, ``frontend`` after the real image, ``critic`` and
+    ``generator`` after each update with its Adam, ``end`` after the row
+    is written) add the time between them to the phases ``frontend``,
+    ``critic``, ``generator``, ``ema`` (EMA, the metrics, their mean over
+    the ranks, the row write) and ``between`` (the previous step's end to
+    this one's start: between replays and between supersteps; not counted
+    at a program's first mark), and count the steps. The totals stay on
+    the step's device, and the graph replays the marks with the step.
+
+    Host: :meth:`staging` is the span ``superstep.stage`` (a profiler
+    range) around the host's staging of a call's rows, and adds its ns to
+    ``host_stage_ns``.
+
+    :meth:`read` copies the totals to the host (one copy, which waits for
+    the device); the caller chooses when. With a mesh each rank keeps its
+    own."""
+
+    def __init__(self):
+        self.totals: Optional[torch.Tensor] = None
+        self.host_stage_ns = 0
+
+    def place(self, device: torch.device) -> None:
+        """Zeroed totals on ``device`` unless they are there already."""
+        if self.totals is None or self.totals.device != device:
+            self.totals = marks.new_totals(device)
+
+    def mark(self, name: str) -> None:
+        marks.step_mark(self.totals, marks.MARKS.index(name))
+
+    def anchor(self) -> None:
+        """Enqueue the anchor: the next ``start`` adds to ``between`` only
+        the time from here. A reader that copies the totals and then does
+        other work calls it before the steps it times. Nothing before the
+        first step."""
+        if self.totals is not None:
+            marks.step_mark(self.totals, marks.ANCHOR)
+
+    @contextlib.contextmanager
+    def staging(self):
+        t0 = time.perf_counter_ns()
+        try:
+            with record_function("superstep.stage"):
+                yield
+        finally:
+            self.host_stage_ns += time.perf_counter_ns() - t0
+
+    def read(self) -> Dict[str, int]:
+        """``{"steps": n, "<phase>_ns": ..., "host_stage_ns": ...}``, each
+        a total since the program was made."""
+        t = ([0] * marks.SLOTS if self.totals is None
+             else self.totals.tolist())
+        return {"steps": t[marks.STEPS],
+                **{f"{p}_ns": t[i] for i, p in enumerate(marks.PHASES)},
+                "host_stage_ns": self.host_stage_ns}
+
+
 def _state_tensors(state: TrainState):
     """Every tensor a step updates: the three networks' parameters and
     both Adams' moments."""
@@ -334,6 +405,7 @@ class _StepProgram:
         self.static: Dict[str, torch.Tensor] = {}
         self.graph: Optional[cuda_graphs.Graph] = None
         self.addresses = None
+        self.phases = StepPhases()
 
     def buffer(self, name: str, shape, dtype, device) -> torch.Tensor:
         """A static input buffer, made anew (and the graph dropped) when
@@ -347,15 +419,19 @@ class _StepProgram:
         return buf
 
     def _body(self, state, fetch) -> None:
+        mark = self.phases.mark
+        mark("start")
         z_d, u, z_g, alpha, bc_d, bc_g, idx = self.rows.read()
         wave, pitch = fetch(idx, self.rows.pos)
         metrics = self.core(state, wave, pitch, alpha, z_d, u, z_g, bc_d,
-                            bc_g)
+                            bc_g, mark)
         self.rows.write(torch.stack([metrics[k] for k in self.names]))
+        mark("end")
 
     def _capture(self, state, fetch, device) -> cuda_graphs.Graph:
-        # The warm-up is a real step: undo it before the capture.
-        tensors = _state_tensors(state)
+        # The warm-up is a real step: undo it (its phase marks too) before
+        # the capture.
+        tensors = _state_tensors(state) + [self.phases.totals]
         saved = [t.detach().clone() for t in tensors]
 
         def restore():
@@ -378,23 +454,30 @@ class _StepProgram:
                                "another rank")
         return graph
 
-    def run(self, state, rows: np.ndarray, fetch, device, kmax: int,
-            batch: int, indices: int, static=()) -> Dict[str, torch.Tensor]:
-        """Enqueue ``len(rows)`` steps of ``state``; ``fetch(idx, pos)``
-        gives a step's ``(wave, pitch)`` from its row's ``indices`` device
-        indices or from its position. Advances the host's step and Adam
-        counts; returns the steps' mean metrics."""
-        k = len(rows)
-        r = self.rows
-        if (r is None or r.rows.shape[0] < k or r.batch != batch
-                or r.rows.device != device or r.width - r.floats != indices):
-            r = self.rows = _Rows(device, batch, self.latent_dim,
-                                  max(k, kmax), len(self.names), indices)
-            self.graph = None
-        if rows.shape[1] != r.width:
-            raise ValueError(f"staged rows of {rows.shape[1]} words, the "
-                             f"step reads {r.width}")
-        r.load(rows)
+    def run(self, state, stage: Callable[[], np.ndarray], fetch, device,
+            kmax: int, batch: int, indices: int,
+            static=()) -> Dict[str, torch.Tensor]:
+        """Enqueue the steps whose rows ``stage()`` gives (:func:`_stage_rows`,
+        run inside :meth:`StepPhases.staging` with the rows' copy to the
+        device) on ``state``; ``fetch(idx, pos)`` gives a step's ``(wave,
+        pitch)`` from its row's ``indices`` device indices or from its
+        position. Advances the host's step and Adam counts; returns the
+        steps' mean metrics."""
+        with self.phases.staging():
+            rows = stage()
+            k = len(rows)
+            r = self.rows
+            if (r is None or r.rows.shape[0] < k or r.batch != batch
+                    or r.rows.device != device
+                    or r.width - r.floats != indices):
+                r = self.rows = _Rows(device, batch, self.latent_dim,
+                                      max(k, kmax), len(self.names), indices)
+                self.graph = None
+            if rows.shape[1] != r.width:
+                raise ValueError(f"staged rows of {rows.shape[1]} words, "
+                                 f"the step reads {r.width}")
+            r.load(rows)
+        self.phases.place(r.rows.device)
         if self.graphs and cuda_graphs.available(device):
             for opt in (state.d_opt, state.g_opt):
                 opt.init_moments()
@@ -457,11 +540,11 @@ def make_train_step(config: Config, stage: int, mesh=None,
         batch = wave.shape[0] * (1 if mesh is None else mesh.world)
         given = {k: v for k, v in (("z_d", z_d), ("u", u), ("z_g", z_g))
                  if v is not None}
-        rows = _stage_rows(state, [float(alpha)], batch,
-                           config.model.latent_dim, mesh, given)
         fetch = _streamed(prog, wave[None], torch.as_tensor(pitch)[None], 1)
-        metrics = prog.run(state, rows, fetch, wave.device, 1,
-                           wave.shape[0], 0)
+        metrics = prog.run(
+            state, lambda: _stage_rows(state, [float(alpha)], batch,
+                                       config.model.latent_dim, mesh, given),
+            fetch, wave.device, 1, wave.shape[0], 0)
         metrics["alpha"] = torch.tensor(float(alpha))
         return state, metrics
 
@@ -485,11 +568,12 @@ def make_superstep(config: Config, stage: int, mesh=None,
         alphas = [float(a) for a in alphas]
         local = waves.shape[1]
         batch = local * (1 if mesh is None else mesh.world)
-        rows = _stage_rows(state, alphas, batch, config.model.latent_dim,
-                           mesh)
         size = max(kmax, len(alphas))
         fetch = _streamed(prog, waves, torch.as_tensor(pitches), size)
-        metrics = prog.run(state, rows, fetch, waves.device, size, local, 0)
+        metrics = prog.run(
+            state, lambda: _stage_rows(state, alphas, batch,
+                                       config.model.latent_dim, mesh),
+            fetch, waves.device, size, local, 0)
         metrics["alpha"] = torch.tensor(alphas[-1])
         return state, metrics
 
@@ -593,24 +677,28 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
 
     def superstep(state, all_waves, all_pitches, alphas):
         alphas = [float(a) for a in alphas]
-        idx = [cached_batch_indices(state.rng, state.step + i, batch,
-                                    num_examples, law)
-               for i in range(len(alphas))]
-        if sharded:   # the global batch's indices: each row has an owner
+
+        def stage():
+            idx = [cached_batch_indices(state.rng, state.step + i, batch,
+                                        num_examples, law)
+                   for i in range(len(alphas))]
+            if not sharded:   # else the global batch's: each has an owner
+                idx = [x if mesh is None else x[mesh.rows(batch)]
+                       for x in idx]
+            return _stage_rows(state, alphas, batch,
+                               config.model.latent_dim, mesh, indices=idx)
+
+        if sharded:
             def fetch(dev_idx, pos):
                 return _gather_from_owners(mesh, all_waves, all_pitches,
                                            dev_idx, num_examples)
-            staged = idx
         else:
             def fetch(dev_idx, pos):
                 return (all_waves.index_select(0, dev_idx),
                         all_pitches.index_select(0, dev_idx))
-            staged = [x if mesh is None else x[mesh.rows(batch)]
-                      for x in idx]
-        rows = _stage_rows(state, alphas, batch, config.model.latent_dim,
-                           mesh, indices=staged)
-        metrics = prog.run(state, rows, fetch, all_waves.device,
-                           max(kmax, len(alphas)), local, len(staged[0]),
+        metrics = prog.run(state, stage, fetch, all_waves.device,
+                           max(kmax, len(alphas)), local,
+                           batch if sharded else local,
                            static=(all_waves, all_pitches))
         metrics["alpha"] = torch.tensor(alphas[-1])
         return state, metrics

@@ -19,8 +19,9 @@ must be a tensor at a fixed address (a static input that the caller
 copies into before a replay); a Python value that it reads is frozen at
 the capture. Kernel launches that the wrappers counted during the capture
 are taken back (a capture launches nothing) and added again at every
-replay (``kernels.launch_counts``); the warm-up's launches are real and
-stay counted.
+replay (``kernels.launch_counts``, and K2's by shape,
+``kernels.launch_shapes``); the warm-up's launches are real and stay
+counted.
 
 :class:`GraphedCall` is ``fn(*tensors) -> tensor or tuple of tensors``
 with one graph per input shape (a serving rung), all in one pool: the
@@ -49,7 +50,12 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from gansynth_tpu_torch.kernels import add_launch_counts, launch_counts
+from gansynth_tpu_torch.kernels import (
+    add_launch_counts,
+    add_launch_shapes,
+    launch_counts,
+    launch_shapes,
+)
 
 
 def available(device) -> bool:
@@ -57,8 +63,10 @@ def available(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def _delta(after: Dict[str, int], before: Dict[str, int]) -> Dict[str, int]:
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+def _delta(after: Dict, before: Dict) -> Dict:
+    keys = after.keys() | before.keys()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in keys
+            if after.get(k, 0) != before.get(k, 0)}
 
 
 def _warm_up(fn: Callable, device: torch.device, calls: int) -> None:
@@ -104,16 +112,17 @@ class Graph:
         _warm_up(fn, self.device, warmup)
         if before_capture is not None:
             before_capture()
-        before = launch_counts()
+        before, shapes = launch_counts(), launch_shapes()
         t0 = time.perf_counter()
         try:
             self._graph, self.outputs = _capture(fn, self.device, pool,
                                                  mode)
             self.capture_seconds = time.perf_counter() - t0
         finally:
-            after = launch_counts()
-            self.launches = _delta(after, before)
-            add_launch_counts(_delta(before, after))
+            self.launches = _delta(launch_counts(), before)
+            self.shapes = _delta(launch_shapes(), shapes)
+            add_launch_counts({k: -v for k, v in self.launches.items()})
+            add_launch_shapes({k: -v for k, v in self.shapes.items()})
 
     def pool(self):
         return self._graph.pool()
@@ -121,6 +130,7 @@ class Graph:
     def replay(self):
         self._graph.replay()
         add_launch_counts(self.launches)
+        add_launch_shapes(self.shapes)
         return self.outputs
 
 

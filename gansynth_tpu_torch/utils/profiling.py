@@ -26,10 +26,10 @@ and with the plain lowerings under ``torch.backends.cudnn.benchmark``
 (cuDNN times its algorithms and keeps the fastest; set for that run only),
 in one process: the time of each of 12 steps after a warm-up with CUDA
 events (median, least and most), then a ``torch.profiler`` trace of a few
-steps with the device time of the step's phases (``spectral_frontend``,
-``discriminator_update``, ``generator_update``, ``ema_update``), the
-kernels that take the most device time and the idle share. One JSON
-object per run.
+steps with the device time of the step's phases (``frontend``,
+``critic``, ``generator``, ``ema``, ``between``: from the starts of the
+step's mark kernels, ``kernels/marks.py``), the kernels that take the
+most device time and the idle share. One JSON object per run.
 
 ``--loop``: the training loop's cached superstep of ``unroll`` steps over
 256 fixture notes held on the card (``train/step.py:
@@ -215,8 +215,6 @@ def graph_vs_eager(config, generator, stage: int, batch: int,
             for k, fn in calls.items()}
 
 
-PHASES = ("spectral_frontend", "discriminator_update", "generator_update",
-          "ema_update")
 # The port's kernels by the names of their device functions in
 # kernels/csrc (each type and template instance): K1, K2, K3.
 PORT_KERNELS = {"synthesis_spectrum": "synthesis_spectrum_gather",
@@ -232,16 +230,41 @@ def port_kernel(name: str):
     return None
 
 
+def mark_spans(events) -> Dict[str, float]:
+    """The training step's phases in a trace's ``events``, in its
+    microseconds: for every two consecutive mark kernels
+    (``kernels/marks.py``, device functions ``step_mark_<mark>``) in the
+    marks' order, or an anchor and a mark, the time from the first one's
+    start to the second's, added to the phase that the second ends
+    (``between`` from an ``end`` to a ``start``)."""
+    from gansynth_tpu_torch.kernels import marks
+
+    cuda = torch.autograd.DeviceType.CUDA
+    names = [*marks.MARKS, "anchor"]
+    found = []
+    for e in events:
+        if e.device_type == cuda and "step_mark_" in e.name:
+            for i, m in enumerate(names):
+                if f"step_mark_{m}" in e.name:
+                    found.append((e.time_range.start, i))
+    found.sort()
+    out = dict.fromkeys(marks.PHASES, 0.0)
+    for (a, i), (b, j) in zip(found, found[1:]):
+        if j < marks.ANCHOR and (i == marks.ANCHOR
+                                 or j == (i + 1) % marks.ANCHOR):
+            out[marks.PHASES[marks.phase_ended(j)]] += b - a
+    return out
+
+
 def _trace(fn, iters: int, top: int) -> Dict[str, object]:
     """``fn`` run ``iters`` times under ``torch.profiler``: per call, the
-    device time by kernel, the span of each step phase on the device's
-    timeline (its ``record_function`` range), the idle share of the
-    traced window's wall time, and the host's CUDA API launch calls by
-    name (kernel launches through the runtime or the driver, graph
-    launches), and how often each of the port's kernels ran (by
-    :func:`port_kernel`). Ranges on the device's timeline (the phases,
-    ``Optimizer.step#...``) are spans, not kernels, and are kept out of
-    the kernel sums."""
+    device time by kernel, the device ms of each of the training step's
+    phases (:func:`mark_spans`), the idle share of the traced window's
+    wall time, and the host's CUDA API launch calls by name (kernel
+    launches through the runtime or the driver, graph launches), and how
+    often each of the port's kernels ran (by :func:`port_kernel`). Ranges
+    on the device's timeline (``Optimizer.step#...``, user annotations)
+    are spans, not kernels, and are kept out of the kernel sums."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -253,7 +276,6 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels: List[Dict[str, object]] = []
-    phases: Dict[str, float] = {}
     launches: Dict[str, float] = {}
     port = dict.fromkeys(PORT_KERNELS, 0.0)
     for e in prof.key_averages():
@@ -263,10 +285,8 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
                 launches[e.key] = e.count / iters
             continue
         ms = e.device_time_total / 1e3 / iters
-        if e.key in PHASES:
-            phases[e.key] = ms
-        elif not (getattr(e, "is_user_annotation", False)
-                  or e.key.startswith("Optimizer.")):
+        if not (getattr(e, "is_user_annotation", False)
+                or e.key.startswith("Optimizer.")):
             kernels.append({"name": e.key[:90], "ms_per_call": ms,
                             "launches_per_call": e.count / iters})
             key = port_kernel(e.key)
@@ -278,7 +298,8 @@ def _trace(fn, iters: int, top: int) -> Dict[str, object]:
         "device_ms_per_call": busy,
         "wall_ms_per_call": wall_ms / iters,
         "idle_share": 1.0 - busy * iters / wall_ms if wall_ms else None,
-        "phase_span_ms": phases,
+        "phase_span_ms": {k: v / 1e3 / iters for k, v in
+                          mark_spans(prof.events()).items()},
         "top_kernels": kernels[:top],
         "api_launches_per_call": launches,
         "port_kernels_per_call": port,

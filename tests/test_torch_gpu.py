@@ -1,8 +1,10 @@
 """Card-only tests of the port: each CUDA kernel against its plain version,
-an exported sampler that launches K1 from its program, and the CUDA
+an exported sampler that launches K1 from its program, the CUDA
 graphs of the serving rungs, the keyed samplers and the training
 superstep (on one card, and in an NCCL group of one rank) against the
-same work run eagerly.
+same work run eagerly, and the training step's mark kernels: their
+totals, and the phases a profiler's trace of a graphed superstep shows
+between them.
 
 Marked ``gpu``; each test skips unless ``torch.cuda.is_available()``. This
 file imports neither JAX nor the reference package, so it also runs on a
@@ -21,6 +23,7 @@ f32 and round once to bf16, whose ulp is 2**-8 of the value).
 
 import dataclasses
 import math
+import time
 
 import pytest
 import torch
@@ -695,3 +698,158 @@ def test_a_failed_capture_raises(cuda_device):
     assert len(calls) == 2   # the warm-up and the capture, no retry
     assert not torch.cuda.is_current_stream_capturing()
     assert float(torch.ones(2, device=cuda_device).sum()) == 2.0
+
+
+@pytest.mark.gpu
+def test_step_marks_count_on_the_device_and_in_a_graph(cuda_device):
+    """The five mark kernels: the first start adds nothing, every later
+    mark adds to its phase, end counts the step; the anchor adds nothing
+    and the next start counts from it; captured in a CUDA graph they run
+    at every replay."""
+    from gansynth_tpu_torch.kernels import marks
+
+    totals = marks.new_totals(cuda_device)
+    spin = torch.ones((1024, 1024), device=cuda_device)
+    for m in range(len(marks.MARKS)):
+        spin = spin @ spin / 1024   # device time between two marks
+        marks.step_mark(totals, m)
+    got = totals.tolist()
+    assert got[marks.STEPS] == 1 and got[marks.LAST] > 0
+    assert got[marks.PHASES.index("between")] == 0
+    assert all(got[i] > 0 for i in range(4))
+    time.sleep(0.02)   # the card idles
+    marks.step_mark(totals, marks.ANCHOR)
+    anchored = totals.tolist()
+    assert anchored[:marks.LAST] == got[:marks.LAST]
+    assert anchored[marks.LAST] - got[marks.LAST] >= 20_000_000
+    marks.step_mark(totals, 0)   # a start counts from the anchor
+    got = totals.tolist()
+    assert 0 < got[marks.PHASES.index("between")] < 2_000_000
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, stream=side):
+            for m in range(len(marks.MARKS)):
+                marks.step_mark(totals, m)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert totals.tolist() == got   # a capture runs nothing
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    after = totals.tolist()
+    assert after[marks.STEPS] == 4
+    assert all(after[i] > got[i] for i in range(5))
+
+
+@pytest.mark.gpu
+def test_the_traced_phases_are_the_device_totals(cuda_device):
+    """A graphed 3-step cached superstep at the flagship's widths, queued
+    behind another as the training loop runs it: over the second, each
+    phase's time between the mark kernels' starts in the profiler's trace
+    matches the program's totals (critic and generator within 2 %, the
+    rest within 20 us a step); K2's record by shape holds as many
+    launches as the trace has K2 kernels, 3 steps' worth of the wrappers'
+    counts. The totals are copied on the stream between the two
+    supersteps, so the host waits for neither."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import launch_counts, launch_shapes, marks
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.profiling import mark_spans, port_kernel
+
+    config, state, waves, pitches = _flagship_width_state(cuda_device,
+                                                          False)
+    alphas = [1.0] * 3
+    graphed = make_cached_superstep(config, 6, 6)
+    graphed(state, waves, pitches, alphas)   # the capture
+    torch.cuda.synchronize()
+    totals = graphed.program.phases.totals
+    before, after = (torch.empty(totals.shape, dtype=totals.dtype,
+                                 pin_memory=True) for _ in range(2))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(state, waves, pitches, alphas)
+        before.copy_(totals, non_blocking=True)
+        shapes, counts = launch_shapes(), launch_counts()
+        graphed(state, waves, pitches, alphas)
+        after.copy_(totals, non_blocking=True)
+        torch.cuda.synchronize()
+    delta = (after - before).tolist()
+    assert delta[marks.STEPS] == 3
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    marks_seen = [e for e in events if "step_mark_" in e.name]
+    # the second superstep's marks and the first one's last end mark, in
+    # the marks' order; taken from the trace's end, since a profiler
+    # started in a process that has traced before can miss the first
+    # superstep's first kernels
+    assert len(marks_seen) <= 2 * 3 * 5
+    assert [next(m for m in marks.MARKS if f"step_mark_{m}" in e.name)
+            for e in marks_seen[-16:]] == ["end", *marks.MARKS * 3]
+    # the second superstep's marks and the first one's last end mark
+    traced = mark_spans(marks_seen[-16:])
+    for phase, us in traced.items():
+        device_us = delta[marks.PHASES.index(phase)] / 1e3
+        if phase in ("critic", "generator"):
+            assert us == pytest.approx(device_us, rel=0.02), phase
+        else:
+            assert abs(us - device_us) <= 3 * 20.0, phase
+    recorded = {k: v - shapes.get(k, 0) for k, v in launch_shapes().items()
+                if v != shapes.get(k, 0)}
+    second = [e for e in events if e.time_range.start
+              >= marks_seen[-15].time_range.start]
+    k2 = sum(port_kernel(e.name) == "conv3x3" for e in second)
+    assert sum(recorded.values()) == k2 > 0
+    wrappers = sum(launch_counts()[k] - counts[k] for k in
+                   ("conv3x3_forward", "conv3x3_input_grad",
+                    "conv3x3_recompute"))
+    assert wrappers == k2
+    assert all(len(k) == 6 and k[0] in ("forward", "input_grad")
+               for k in recorded)
+
+
+@pytest.mark.gpu
+def test_the_traced_between_holds_across_a_host_held_gap(cuda_device):
+    """The host syncs, reads the totals and sleeps while the card idles,
+    as between a loop's log read and its next superstep: each step's
+    ``between`` from the totals matches the trace's gap from the end
+    mark's start to the next start mark's within 5 us (an idle card keeps
+    both clocks together: 0.8 us apart after 300 ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import marks
+
+    between = marks.PHASES.index("between")
+    totals = marks.new_totals(cuda_device)
+    spin = torch.ones((1024, 1024), device=cuda_device)
+    gaps = (0.0005, 0.007, 0.02)
+    read = []
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for gap in (0.0, *gaps):
+            read.append(totals.tolist()[between])   # syncs
+            time.sleep(gap)
+            for m in range(len(marks.MARKS)):
+                marks.step_mark(totals, m)
+                spin = spin @ spin / 1024
+        torch.cuda.synchronize()
+    read.append(totals.tolist()[between])
+    cuda = torch.autograd.DeviceType.CUDA
+    seen = sorted((e for e in prof.events() if e.device_type == cuda
+                   and "step_mark_" in e.name),
+                  key=lambda e: e.time_range.start)
+    # the last len(gaps) starts and the ends before them (the first
+    # step, which has no gap, may lose kernels as the profiler starts)
+    starts = [e for e in seen if "step_mark_start" in e.name][-len(gaps):]
+    ends = [e for e in seen if "step_mark_end" in e.name][-len(gaps) - 1:]
+    assert len(starts) == len(ends) - 1 == len(gaps)
+    for i, gap in enumerate(gaps, 1):
+        device_us = (read[i + 1] - read[i]) / 1e3
+        traced_us = (starts[i - 1].time_range.start
+                     - ends[i - 1].time_range.start)
+        assert device_us >= 1e6 * gap
+        assert abs(traced_us - device_us) <= 5.0, (gap, traced_us,
+                                                   device_us)

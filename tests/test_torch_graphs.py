@@ -32,10 +32,18 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
 - The names by which ``utils/profiling.py`` counts the port's kernels in
   a trace (what ``chip_smoke.py`` holds the replays' counts to) are the
   device functions of ``kernels/csrc``, and match no other kernel.
+- The step's phases (``train/step.py:StepPhases``): an eager cached
+  superstep counts its steps, every phase, and totals that sum to the
+  host's time from its first step's start to its last one's end; with
+  the capture simulated each replay adds one step, the warm-up is undone
+  and a failed capture leaves the count; K2's launches by shape
+  (``kernels.launch_shapes``) are taken back at a capture and added at
+  every replay, and ``launch_counts`` keeps its keys.
 """
 
 import os
 import shutil
+import time
 
 import jax
 import jax.numpy as jnp
@@ -50,7 +58,7 @@ from gansynth_tpu.train.step import real_image_for_stage as j_real
 from gansynth_tpu_torch.data.fixtures import note_batch
 from gansynth_tpu_torch.kernels import conv as K2
 from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import launch_counts
+from gansynth_tpu_torch.kernels import launch_counts, launch_shapes
 from gansynth_tpu_torch.kernels import synthesis as K1
 from gansynth_tpu_torch.models.generator import Generator
 from gansynth_tpu_torch.serve import SynthesisService
@@ -219,7 +227,8 @@ def _launch():
 
 
 def _delta(after, before):
-    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)}
 
 
 @pytest.fixture
@@ -411,7 +420,8 @@ def test_on_device_is_eager_off_a_card():
 def test_traced_kernel_names_map_to_the_port_kernels():
     """``profiling.port_kernel`` maps the device functions of
     ``kernels/csrc`` (as a trace names them: demangled, with template
-    arguments, or mangled) to K1/K2/K3 and nothing else to any."""
+    arguments, or mangled) to K1/K2/K3 and nothing else to any: the
+    step's mark kernels are none of them."""
     import re
 
     from gansynth_tpu_torch.utils import profiling
@@ -428,7 +438,10 @@ def test_traced_kernel_names_map_to_the_port_kernels():
                      "conv3x3_nhwc_f32_fma": "conv3x3",
                      "conv3x3_nhwc_bf16_wgmma": "conv3x3",
                      "dblock_nhwc_f32_fma": "dblock",
-                     "dblock_nhwc_bf16_wgmma": "dblock"}
+                     "dblock_nhwc_bf16_wgmma": "dblock",
+                     **{f"step_mark_{m}": None for m in (
+                         "start", "frontend", "critic", "generator",
+                         "end", "anchor")}}
     assert profiling.port_kernel(
         "void conv3x3_nhwc_bf16_wgmma<256>(CUtensorMap_st, "
         "CUtensorMap_st, __nv_bfloat16*, int, int, int)") == "conv3x3"
@@ -495,3 +508,156 @@ def test_a_superstep_recaptures_for_another_state(simulated):
         superstep(state, torch.from_numpy(waves_).reshape(2, 2, -1),
                   torch.from_numpy(pitches).reshape(2, 2), [1.0, 1.0])
     assert simulated["captures"] == 3   # each state has its own tensors
+
+
+def test_an_eager_superstep_counts_its_phases(monkeypatch):
+    """k eager steps on the CPU: k steps, every phase above nought, the
+    totals within 10 % of the host's time from the first step's row read
+    to the last step's row write, and the staging span's time."""
+    cfg = Config().with_overrides(NARROW)
+    state = create_train_state(cfg, seed=0, device="cpu")
+    all_waves, pitches = note_batch(EXAMPLES)
+    superstep = tstep.make_cached_superstep(cfg, STAGE, EXAMPLES)
+    phases = superstep.program.phases
+    assert phases.read() == {"steps": 0, "frontend_ns": 0, "critic_ns": 0,
+                             "generator_ns": 0, "ema_ns": 0,
+                             "between_ns": 0, "host_stage_ns": 0}
+    times = []
+    read, write = tstep._Rows.read, tstep._Rows.write
+
+    def timed_read(self):
+        times.append(time.perf_counter_ns())
+        return read(self)
+
+    def timed_write(self, metrics):
+        write(self, metrics)
+        times.append(time.perf_counter_ns())
+
+    monkeypatch.setattr(tstep._Rows, "read", timed_read)
+    monkeypatch.setattr(tstep._Rows, "write", timed_write)
+    superstep(state, torch.from_numpy(all_waves),
+              torch.from_numpy(pitches.astype(np.int32)), [1.0] * 3)
+    got = phases.read()
+    assert got["steps"] == 3
+    totals = [got[f"{p}_ns"] for p in ("frontend", "critic", "generator",
+                                       "ema", "between")]
+    assert all(t > 0 for t in totals), got
+    wall = times[-1] - times[0]
+    assert abs(sum(totals) - wall) <= 0.1 * wall
+    assert got["host_stage_ns"] > 0
+
+
+def test_an_anchor_restarts_between_and_adds_nothing():
+    """The plain marks: after an anchor the next ``start`` adds to
+    ``between`` only the time since the anchor, and the anchor itself
+    adds to no total; a ``StepPhases`` with no totals yet ignores it."""
+    from gansynth_tpu_torch.kernels import marks
+
+    between = marks.PHASES.index("between")
+    totals = marks.new_totals("cpu")
+    for m in range(len(marks.MARKS)):
+        marks.step_mark(totals, m)
+    gaps = []
+    for anchored in (False, True):
+        before = totals.tolist()
+        time.sleep(0.03)
+        if anchored:
+            marks.step_mark(totals, marks.ANCHOR)
+            assert totals.tolist()[:marks.LAST] == before[:marks.LAST]
+        marks.step_mark(totals, 0)
+        gaps.append(totals.tolist()[between] - before[between])
+        for m in range(1, len(marks.MARKS)):
+            marks.step_mark(totals, m)
+    assert gaps[0] >= 30_000_000 > 10 * gaps[1]
+    assert totals.tolist()[marks.STEPS] == 3
+    phases = tstep.StepPhases()
+    phases.anchor()
+    assert phases.totals is None and phases.read()["steps"] == 0
+
+
+class _Event:
+    """What :func:`profiling.mark_spans` reads of a traced event."""
+
+    def __init__(self, name, start, device=True):
+        self.name = name
+        self.device_type = (torch.autograd.DeviceType.CUDA if device
+                            else torch.autograd.DeviceType.CPU)
+        self.time_range = type("Range", (), {"start": start})()
+
+
+def test_mark_spans_add_consecutive_marks_and_anchors():
+    """A trace's mark kernels: each pair of consecutive marks adds its gap
+    to the phase the second ends, an anchor and the mark after it too; a
+    pair out of order, or a host event, adds nothing."""
+    from gansynth_tpu_torch.utils.profiling import mark_spans
+
+    names = ["start", "frontend", "critic", "generator", "end"]
+    events = [_Event(f"void step_mark_{m}(long long*)", t) for m, t in
+              zip(names + names, (0, 2, 10, 15, 16, 20, 23, 31, 37, 39))]
+    events += [_Event("void step_mark_anchor(long long*)", 100),
+               _Event("void step_mark_start(long long*)", 104),
+               _Event("void step_mark_critic(long long*)", 110),
+               _Event("step_mark_generator", 50, device=False)]
+    assert mark_spans(reversed(events)) == {
+        "frontend": 2 + 3, "critic": 8 + 8, "generator": 5 + 6,
+        "ema": 1 + 2, "between": 4 + 4}
+
+
+def test_replays_add_the_captures_steps(simulated):
+    """With the capture simulated (dry, as on a card), every replay adds
+    one step; the warm-up's step is undone with the state; a failed
+    capture leaves the count where it was."""
+    simulated["dry"] = True
+    cfg = Config().with_overrides(
+        {**NARROW, "train": {**NARROW["train"], "unroll": 3}})
+    all_waves, pitches = note_batch(EXAMPLES)
+    all_waves = torch.from_numpy(all_waves)
+    pitches = torch.from_numpy(pitches.astype(np.int32))
+    superstep = tstep.make_cached_superstep(cfg, STAGE, EXAMPLES)
+    phases = superstep.program.phases
+    state = create_train_state(cfg, seed=0, device="cpu")
+    for calls in (1, 2):
+        superstep(state, all_waves, pitches, [1.0] * 3)
+        assert phases.read()["steps"] == 3 * calls
+    assert simulated["captures"] == 1
+    other = create_train_state(cfg, seed=1, device="cpu")
+    before = phases.read()
+    simulated["fail"] = "capture failed"
+    with pytest.raises(RuntimeError, match="capture failed"):
+        superstep(other, all_waves, pitches, [1.0] * 3)
+    after = phases.read()
+    assert after["steps"] == before["steps"]
+    assert {k: v for k, v in after.items() if k != "host_stage_ns"} == \
+        {k: v for k, v in before.items() if k != "host_stage_ns"}
+
+
+def _launch_shapes():
+    """What K2's wrapper records for a small 'kernel program'."""
+    for _ in range(2):
+        K2._count("forward", 8, 64, 512, 128, 256)
+    K2._count("input_grad", 8, 64, 512, 256, 128)
+    return "outputs"
+
+
+def test_graph_shape_bookkeeping(simulated):
+    keys = set(launch_counts())
+    assert keys == {"conv3x3_forward", "conv3x3_input_grad",
+                    "conv3x3_recompute", "dblock", "dblock_recompute",
+                    "synthesis_spectrum"}
+    one = {("forward", 8, 64, 512, 128, 256): 2,
+           ("input_grad", 8, 64, 512, 256, 128): 1}
+    before = launch_shapes()
+    g = graphs.Graph(_launch_shapes, "cpu", warmup=2)
+    captured = launch_shapes()
+    assert _delta(captured, before) == {k: 2 * v for k, v in one.items()}
+    assert g.shapes == one
+    for _ in range(3):
+        g.replay()
+    assert _delta(launch_shapes(), captured) == {k: 3 * v
+                                                 for k, v in one.items()}
+    assert set(launch_counts()) == keys
+    simulated["fail"] = "operation not permitted when stream is capturing"
+    mark = launch_shapes()
+    with pytest.raises(RuntimeError, match="capturing"):
+        graphs.Graph(_launch_shapes, "cpu", warmup=0)
+    assert launch_shapes() == mark

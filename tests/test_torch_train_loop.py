@@ -27,6 +27,7 @@ at the stage change and at the release step ([0,3) [3,6) [6,8) [8,11)
 
 import json
 import os
+import time
 
 import jax
 import jax.numpy as jnp
@@ -203,6 +204,34 @@ def test_data_factory_builds_each_stage_at_its_place(dataset, tmp_path):
     _assert_bit_equal(_bits(resumed), _bits(whole))
     with pytest.raises(ValueError, match="stage_batch_sizes"):
         train(cfg, _stream(dataset, 2), num_steps=1, device="cpu")
+
+
+@pytest.mark.parametrize("route", ["device_dataset", "data_iter"])
+def test_log_lines_carry_the_step_phases(dataset, tmp_path, route):
+    """Every log line keeps the step's metrics and ``steps_per_sec`` and
+    adds each phase's ms a step since the last log and the host's
+    staging; over the run they come to the steps' time."""
+    cfg = _config(unroll=3 if route == "device_dataset" else 1)
+    kwargs = ({"device_dataset": dataset} if route == "device_dataset"
+              else {"data_iter": _stream(dataset, 2)})
+    t0 = time.perf_counter()
+    train(cfg, kwargs.pop("data_iter", None), num_steps=6,
+          workdir=str(tmp_path), device="cpu", **kwargs)
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    with open(os.path.join(str(tmp_path), "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    phases = [f"phase_ms/{p}" for p in ("frontend", "critic", "generator",
+                                        "ema", "between")]
+    prev, steps_ms = 0, 0.0
+    for line in lines:
+        assert {"d_loss", "g_loss", "alpha", "steps_per_sec",
+                "host_stage_ms", *phases} <= set(line)
+        assert all(line[k] > 0 for k in phases[:4])
+        assert line["host_stage_ms"] > 0
+        steps_ms += (line["step"] - prev) * sum(line[k] for k in phases)
+        prev = line["step"]
+    assert prev == 6
+    assert 0 < steps_ms < wall_ms
 
 
 def test_sample_dumps_write_the_keyed_samplers_notes(dataset, tmp_path):

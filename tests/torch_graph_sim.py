@@ -16,7 +16,7 @@ import torch
 
 from gansynth_tpu_torch.kernels import conv as K2
 from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import launch_counts
+from gansynth_tpu_torch.kernels import launch_counts, launch_shapes
 from gansynth_tpu_torch.kernels import synthesis as K1
 from gansynth_tpu_torch.utils import graphs
 
@@ -33,19 +33,22 @@ def _set_count(name, value):
 
 
 class FakeGraph:
-    """A captured ``fn``: a replay reruns it with its launches' counting
-    left to the bookkeeping (``replays`` counts them) and copies what it
-    returns into the capture's outputs (a tensor or a tuple of them)."""
+    """A captured ``fn``: a replay reruns it with its launches' counting,
+    by wrapper and by K2's shape, left to the bookkeeping (``replays``
+    counts them) and copies what it returns into the capture's outputs (a
+    tensor or a tuple of them)."""
 
     def __init__(self, fn, outputs=None):
         self.fn, self.outputs, self.replays = fn, outputs, 0
 
     def replay(self):
         self.replays += 1
-        saved = launch_counts()
+        saved, shapes = launch_counts(), launch_shapes()
         out = self.fn()
         for k, v in saved.items():   # a replay's counts are the Graph's
             _set_count(k, v)
+        K2.conv3x3_same.shapes.clear()
+        K2.conv3x3_same.shapes.update(shapes)
         if torch.is_tensor(self.outputs):
             self.outputs.copy_(out)
         elif isinstance(self.outputs, tuple):
