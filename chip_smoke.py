@@ -9,10 +9,10 @@ Phases, each printing one line with its elapsed seconds (any failure
 raises, so the exit code is non-zero):
 
 1. the card's ``name, power.limit`` line from ``nvidia-smi``;
-2. build the three kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
-   critic block) and the training step's mark kernels with plain
-   ``nvcc``, one process each, all at once, and print their ``ptxas``
-   lines;
+2. build the four kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
+   critic block, K4 generator epilogue) and the training step's mark
+   kernels with plain ``nvcc``, one process each, all at once, and print
+   their ``ptxas`` lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
    of the service, at the training loop's sample batch (``SAMPLE_BATCH``)
    and at the offline CLI's batches (``OFFLINE_BATCHES``: 8, 9, 61), and
@@ -47,11 +47,12 @@ raises, so the exit code is non-zero):
    ``conv_kernel="pallas"``, ``dblock_kernel="pallas"``) at stage 6,
    batch 8, G and EMA from ``ema.npz``, D from a seeded init, Adam fresh:
    one warm-up step (the step's CUDA graph is captured there), then 3
-   steps (replays) timed with CUDA events, with K2's and K3's launches
-   counted over the 3 steps, and one more step under ``torch.profiler``
-   whose K2 and K3 kernels, counted by name on the device, must equal
-   those counts a step; the metrics must be finite and both networks
-   must move;
+   steps (replays) timed with CUDA events, with K2's, K3's and K4's
+   launches counted over the 3 steps (K4's 28 forward and 14 backward a
+   step), and one more step under ``torch.profiler`` whose K2, K3 and K4
+   kernels, counted by name on the device, must equal those counts a
+   step (K4's backward runs with its bias sum: 56 a step); the metrics
+   must be finite and both networks must move;
 9. the same step in float32 from one state (so one drawn noise), once
    with the kernels and once with ``conv_kernel="xla"`` /
    ``dblock_kernel="xla"``, metric by metric;
@@ -100,7 +101,8 @@ raises, so the exit code is non-zero):
     waves' gap); ``interpolate --from-exported`` (9 steps); the same
     artifact loaded on the CPU rendering one note within that bound of the
     card's; and a ``conv_kernel="pallas"`` export whose batch of 4 launches
-    K2 and holds to the in-process sampler. One ``{"export": ...}`` line;
+    K2 and holds to the in-process sampler. K4's launches are counted in
+    phases 7, 10, 11, 12 and 14 too. One ``{"export": ...}`` line;
 13. one JSON line with every kernel's launches on its path (and on the
     training loop's, the offline CLI's and the exported sampler's), error, times (K2 at every
     shape; the library call also under ``cudnn.benchmark``; the fraction
@@ -143,7 +145,8 @@ raises, so the exit code is non-zero):
     host ms a batch, ``GRAPH_TURNS`` rounds in turns; at B=1 and B=16 the
     device's busy ms, its idle share, the CUDA API launches a batch and
     K1 counted by name on the device, once a batch in both forms, from
-    ``torch.profiler``); the artifact is loaded once and its eager form
+    ``torch.profiler``; K4 the same way, 14 launches a batch); the
+    artifact is loaded once and its eager form
     runs the same loaded programs; the keyed sampler (the loop's dumps,
     ``generate``, ``interpolate``'s batch, ``evaluate``) at
     ``KEYED_RUNGS`` 3, 9 and 61 in the same way (wave and image equal to
@@ -151,18 +154,21 @@ raises, so the exit code is non-zero):
     superstep on the flagship's stage-6 state (bf16, K2 and K3 on,
     ``GRAPH_NOTES`` notes cached) as CUDA-graph replays and eagerly from
     one state: G, D and EMA at distance 0 and the metrics equal, K2's and
-    K3's launches a step 69 and 4 in both, ms a step in
+    K3's launches a step 69 and 4 in both (K4's 28 forward and 14
+    backward), ms a step in
     ``GRAPH_TRAIN_TURNS`` rounds in turns of ``GRAPH_TURN_STEPS`` steps
     and the host's enqueue ms; from a trace of ``GRAPH_TRACED`` steps of
     each, the device's busy ms and idle share, the API launches a step
     (``cudaLaunchKernel``, ``cudaGraphLaunch``) and K2 and K3 counted by
-    name on the device, 69 and 4 a step in both forms; peak memory and
+    name on the device, 69 and 4 a step in both forms (K4 56); peak
+    memory and
     the capture's seconds. Each kernel's launches over the phase are
     counted for the graph and the eager form apart. One
     ``{"cuda_graphs": ...}`` line;
 16. the training step's mark kernels (``kernels/csrc/step_marks.cu``),
-    run before phase 13's line: the five marks launched on the card
-    around matmuls, in the order ``start`` to ``end``, beside the plain
+    run after phase 13's ``kernels`` line and before its result line:
+    the five marks launched on the card around matmuls, in the order
+    ``start`` to ``end``, beside the plain
     version on the CPU (``marks.step_mark_plain``) over the same sequence,
     their integer slots held exactly (1 step, nothing ``between`` at the
     first mark, every other phase above 0); a second step after the host
@@ -182,7 +188,15 @@ raises, so the exit code is non-zero):
     line gives how many it holds); K2's launches by shape
     (``kernels.launch_shapes``)
     over the second, ``GRAPH_K2_PER_STEP`` a step, equal to the trace's
-    K2 kernels by name. One ``{"step_marks": ...}`` line.
+    K2 kernels by name. One ``{"step_marks": ...}`` line;
+17. K4 (``kernels/csrc/gen_epilogue.cu``), run after phase 5: its
+    forward and backward against the chain it replaces at the stage-6
+    step's seven epilogue shapes (``K4_SHAPES``) in bf16 and float32,
+    the forward within ``K4_ULPS``, dz and the bias gradient at the card
+    tests' allowance; in bf16 each shape's forward and backward timed
+    back to back and replayed from a CUDA graph, beside the chain and
+    the byte bound, and a step's 28 forwards and 14 backwards summed.
+    One ``{"k4_check": ...}`` line.
 
 A replayed graph launches nothing through the wrappers: their counts add
 what the capture counted at each replay (``kernels.add_launch_counts``).
@@ -216,7 +230,8 @@ F32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
-KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "step_marks")
+KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "gen_epilogue",
+           "step_marks")
 # (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
 # the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
 # conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
@@ -442,9 +457,9 @@ def bound(flops, nbytes, peak):
 
 
 def _demangle(mangled: str) -> str:
-    """The function name (with an integer template argument, if any) of an
-    Itanium-mangled kernel name such as ``_ZN..23conv3x3_nhwc_bf16_wgmmaILi
-    256EEEv..``: the last length-prefixed component of its name."""
+    """The function name (with its integer template arguments, if any) of
+    an Itanium-mangled kernel name such as ``_ZN..23conv3x3_nhwc_bf16_wgmma
+    ILi256EEEv..``: the last length-prefixed component of its name."""
     import re
 
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
@@ -456,8 +471,10 @@ def _demangle(mangled: str) -> str:
         n = int(m.group(1))
         name = rest[m.end():m.end() + n]
         rest = rest[m.end() + n:]
-    t = re.match(r"ILi(\d+)E", rest)
-    return f"{name}<{t.group(1)}>" if t else name
+    t = re.match(r"I((?:Li\d+E)+)E", rest)
+    if not t:
+        return name
+    return f"{name}<{', '.join(re.findall(r'Li(\d+)E', t.group(1)))}>"
 
 
 def ptxas_report(log: str):
@@ -695,6 +712,134 @@ def check_dblock_kernel(device):
     return result
 
 
+# K4's shapes in the stage-6 step at batch 8, [B, H, W, C]: generator
+# blocks 0 to 6, each block's two epilogues at one shape. A step runs
+# each shape 4 times forward (2 in the critic update's no-grad G, 2 in
+# the generator update) and 2 times backward.
+K4_SHAPES = [(8, 2 << i, 16 << i, c)
+             for i, c in enumerate((256, 256, 256, 256, 256, 128, 64))]
+K4_ULPS = {"bfloat16": 1, "float32": 8}
+K4_PER_STEP = {"gen_epilogue_forward": 28, "gen_epilogue_backward": 14}
+# by name on the device: each backward runs with its bias sum
+K4_TRACED_PER_STEP = 28 + 2 * 14
+K4_PER_RENDER = 14   # a stage-6 generator forward: 7 blocks, 2 each
+
+
+def _ulp(x, dtype):
+    """The spacing of ``dtype`` at |x| (x in float32)."""
+    import torch
+
+    _, e = torch.frexp(x.float().abs())
+    return torch.finfo(dtype).eps * torch.exp2((e - 1).float())
+
+
+def within_ulps(got, want, ulps, slack, what):
+    """``got`` against ``want`` elementwise within ``ulps`` units in the
+    last place of ``want``'s type at the larger of the two, plus
+    ``slack``; raises otherwise. Returns the largest absolute error."""
+    big = got.float().abs().maximum(want.float().abs())
+    err = (got.float() - want.float()).abs()
+    bad = int((err > ulps * _ulp(big, want.dtype) + slack).sum())
+    if bad:
+        raise AssertionError(f"{what}: {bad} of {err.numel()} elements "
+                             f"beyond {ulps} ulp(s), max err "
+                             f"{float(err.max()):.3e}")
+    return float(err.max())
+
+
+def check_gen_epilogue_kernel(device, resources):
+    """K4 against the chain it replaces at the stage-6 step's seven
+    epilogue shapes in bf16 and float32: the forward within K4_ULPS of
+    ``gen_epilogue_plain``; the backward (``_backward_cuda``, the bias's
+    gradient taken) against autograd through the chain, dz at the card
+    tests' allowance (``tests/test_torch_gpu.py``,
+    ``test_gen_epilogue_matches_plain``: where the pixel norm's two
+    terms cancel, and where the LeakyReLU scales a rounded dx), the bias
+    gradient within 1 ulp and 1e-5 of its sum of |dz|. In bf16 each
+    shape's forward and backward timed back to back (``ms``) and replayed
+    from a CUDA graph (``graph_ms``, the device's time), the chain's
+    forward and its autograd backward (``plain_ms``), the byte bound at
+    the HBM rate and its fraction of ``graph_ms``; the step's 28
+    forwards and 14 backwards summed."""
+    import torch
+
+    from gansynth_tpu_torch.kernels import gen_epilogue as K4
+    from gansynth_tpu_torch.utils.device import slope_in
+    from gansynth_tpu_torch.utils.kernel_ab import graph_ms
+
+    slope_f, eps = 0.2, 1e-8
+    result = {"shapes": [], "max_abs_err": 0.0, "max_abs_err_f32": 0.0}
+    step = dict.fromkeys(("ms", "graph_ms", "plain_ms", "bound_ms"), 0.0)
+    for i, shape in enumerate(K4_SHAPES):
+        c = shape[-1]
+        row = {"shape": list(shape)}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            gen = torch.Generator(device=device).manual_seed(100 + i)
+            z = (2 * torch.randn(shape, generator=gen, device=device)).to(
+                dtype)
+            bias = 0.5 * torch.randn(c, generator=gen, device=device)
+            g = torch.randn(shape, generator=gen, device=device).to(dtype)
+            zr = z.clone().requires_grad_()
+            br = bias.clone().requires_grad_()
+            yp = K4.gen_epilogue_plain(zr, br, slope_f, eps)
+            dzp, dbp = torch.autograd.grad(yp, (zr, br), g,
+                                           retain_graph=True)
+            y = K4._forward_cuda(z, bias, slope_f, eps)
+            dz, db = K4._backward_cuda(z, bias, g, slope_f, eps, True)
+            torch.cuda.synchronize()
+            ulps = K4_ULPS[name]
+            err_y = within_ulps(y, yp.detach(), ulps, 0.0,
+                                f"K4 {name} {shape} forward")
+            slope = slope_in(dtype, slope_f)
+            passed = (z + bias.to(dtype)) > 0
+            dx = torch.where(passed, dzp.float(), dzp.float() / slope)
+            cancel = 2.0 ** -16 * dx.abs().amax(-1, keepdim=True)
+            scaled = slope * ulps * _ulp(dx, dtype) + _ulp(dzp, dtype)
+            cancel = torch.where(passed, cancel, slope * cancel + scaled)
+            err_dz = within_ulps(dz, dzp, ulps, cancel,
+                                 f"K4 {name} {shape} dz")
+            err_db = within_ulps(db.to(dtype), dbp.to(dtype), 1,
+                                 1e-5 * dzp.float().abs().sum(dim=(0, 1, 2)),
+                                 f"K4 {name} {shape} bias gradient")
+            row[name] = {"y": err_y, "dz": err_dz, "dbias": err_db}
+            key = "max_abs_err" if dtype == torch.bfloat16 \
+                else "max_abs_err_f32"
+            result[key] = max(result[key], err_y)
+            if dtype == torch.bfloat16:
+                n, rows = z.numel(), z.numel() // c
+                nbytes = {"forward": 4.0 * n + 2 * c,
+                          "backward": 6.0 * n + 4 * c
+                          + 8.0 * K4._blocks(rows, c, dtype) * c}
+                forms = {
+                    "forward": (lambda: K4._forward_cuda(z, bias, slope_f,
+                                                         eps),
+                                lambda: K4.gen_epilogue_plain(z, bias)),
+                    "backward": (lambda: K4._backward_cuda(
+                        z, bias, g, slope_f, eps, True),
+                        lambda: torch.autograd.grad(
+                            yp, (zr, br), g, retain_graph=True))}
+                for role, (kernel, plain) in forms.items():
+                    bound_ms = 1e3 * nbytes[role] / HBM_BYTES_PER_S
+                    t = {"ms": cuda_ms(kernel, iters=20),
+                         "graph_ms": graph_ms(kernel),
+                         "plain_ms": cuda_ms(plain, iters=20),
+                         "bound_ms": bound_ms}
+                    t["fraction_of_bound"] = bound_ms / t["graph_ms"]
+                    row[role] = t
+                    times = 4 if role == "forward" else 2
+                    for k in step:
+                        step[k] += times * t[k]
+            del z, g, zr, br, yp, dzp, dbp, y, dz, db
+        result["shapes"].append(row)
+    torch.cuda.synchronize()
+    result["step"] = {**step, "fraction_of_bound": step["bound_ms"]
+                      / step["graph_ms"]}
+    result["resources"] = resources
+    print(json.dumps({"k4_check": result}), flush=True)
+    return result
+
+
 def training_config(dtype=None, kernels="pallas"):
     """The flagship's config after the release step, with the kernels
     switched on (or off) and, optionally, another compute type."""
@@ -733,12 +878,13 @@ def flat_params(module):
 
 def train_steps(device):
     """The slice-2 path: 1 warm-up step, then TRAIN_STEPS timed steps with
-    K2's and K3's launches counted, then one traced step whose kernels,
-    counted by name, must agree."""
+    K2's, K3's and K4's launches counted (K4's K4_PER_STEP a step), then
+    one traced step whose kernels, counted by name, must agree."""
     import torch
 
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
     from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.train.step import make_train_step
     from gansynth_tpu_torch.utils.profiling import kernel_launches
 
@@ -751,6 +897,7 @@ def train_steps(device):
 
     conv3x3_same.launches.update(forward=0, input_grad=0)
     fused_dblock.launches = 0
+    gen_epilogue.launches.update(forward=0, backward=0)
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -763,16 +910,25 @@ def train_steps(device):
         metrics.append({k: float(v) for k, v in m.items()})
     launches = {"conv3x3_forward": conv3x3_same.launches["forward"],
                 "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
-                "dblock": fused_dblock.launches}
+                "dblock": fused_dblock.launches,
+                **{f"gen_epilogue_{k}": gen_epilogue.launches[k]
+                   for k in ("forward", "backward")}}
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         raise AssertionError(f"the training step never launched {bad}")
+    if any(launches[k] != n * TRAIN_STEPS for k, n in K4_PER_STEP.items()):
+        raise AssertionError(f"K4 launches over {TRAIN_STEPS} steps: "
+                             f"{launches}, want {K4_PER_STEP} a step")
     # The counts above add a capture's counts at each replay; one more
     # replay under torch.profiler counts the kernels that ran by name.
     traced = kernel_launches(lambda: step_fn(state, waves, pitches, alpha))
     counted = {"conv3x3": (launches["conv3x3_forward"]
                            + launches["conv3x3_input_grad"]) / TRAIN_STEPS,
-               "dblock": launches["dblock"] / TRAIN_STEPS}
+               "dblock": launches["dblock"] / TRAIN_STEPS,
+               # each backward with its bias sum
+               "gen_epilogue": (launches["gen_epilogue_forward"]
+                                + 2 * launches["gen_epilogue_backward"])
+               / TRAIN_STEPS}
     if any(traced[k] != v for k, v in counted.items()):
         raise AssertionError(f"kernels a step: traced {traced}, counted "
                              f"{counted}")
@@ -873,6 +1029,7 @@ def train_loop(card, single_step_ms):
     from gansynth_tpu_torch import cli
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
     from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
 
     config = loop_seed()
@@ -888,6 +1045,7 @@ def train_loop(card, single_step_ms):
     synthesis_spectrum.launches = 0
     conv3x3_same.launches.update(forward=0, input_grad=0)
     fused_dblock.launches = 0
+    gen_epilogue.launches.update(forward=0, backward=0)
     t = time.perf_counter()
     if cli.main(loop_argv(run_a, LOOP_STEPS)) != 0:
         raise AssertionError("cli train (run A) failed")
@@ -896,7 +1054,9 @@ def train_loop(card, single_step_ms):
     launches = {"synthesis_spectrum": synthesis_spectrum.launches,
                 "conv3x3_forward": conv3x3_same.launches["forward"],
                 "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
-                "dblock": fused_dblock.launches}
+                "dblock": fused_dblock.launches,
+                **{f"gen_epilogue_{k}": gen_epilogue.launches[k]
+                   for k in ("forward", "backward")}}
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
@@ -1052,6 +1212,7 @@ def offline_cli(card):
 
     from gansynth_tpu_torch import cli
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
     from gansynth_tpu_torch.utils.audio_io import read_wav
 
@@ -1103,6 +1264,7 @@ def offline_cli(card):
     for name, argv in runs.items():
         synthesis_spectrum.launches = 0
         conv3x3_same.launches.update(forward=0, input_grad=0)
+        gen_epilogue.launches["forward"] = 0
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -1110,7 +1272,8 @@ def offline_cli(card):
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
         launches[name] = {"synthesis_spectrum": synthesis_spectrum.launches,
-                          "conv3x3": sum(conv3x3_same.launches.values())}
+                          "conv3x3": sum(conv3x3_same.launches.values()),
+                          "gen_epilogue": gen_epilogue.launches["forward"]}
         printed[name] = buf.getvalue()
         if rc != 0:
             raise AssertionError(f"cli {name} exited {rc}:\n"
@@ -1170,7 +1333,8 @@ def offline_cli(card):
     result = {
         "launches": launches, "seconds": seconds,
         "launches_total": {k: sum(v[k] for v in launches.values())
-                           for k in ("synthesis_spectrum", "conv3x3")},
+                           for k in ("synthesis_spectrum", "conv3x3",
+                                     "gen_epilogue")},
         "evaluate": {
             "notes": int(m.group(1)), "render_seconds": float(m.group(2)),
             "metrics_seconds": float(m.group(3)),
@@ -1447,6 +1611,7 @@ def export_phase(card, config):
 
     from gansynth_tpu_torch import cli
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
     from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.synth.export import (
@@ -1497,6 +1662,7 @@ def export_phase(card, config):
     in_process.close()
 
     synthesis_spectrum.launches = 0
+    gen_epilogue.launches["forward"] = 0
     t = time.perf_counter()
     loaded = load_sampler_artifact(art, "cuda")
     out["load_seconds"] = time.perf_counter() - t
@@ -1504,8 +1670,11 @@ def export_phase(card, config):
                                max_batch=MAX_BATCH, request_timeout_s=120.0)
     health, replies = serve_requests(service)
     out["launches"] = synthesis_spectrum.launches
-    if out["launches"] == 0:
-        raise AssertionError("the exported sampler never launched K1")
+    out["k4_launches"] = gen_epilogue.launches["forward"]
+    if out["launches"] == 0 or out["k4_launches"] == 0:
+        raise AssertionError(f"the exported sampler launched K1 "
+                             f"{out['launches']} and K4 "
+                             f"{out['k4_launches']} times")
     if not health["exported_artifact"]:
         raise AssertionError(f"healthz: {health}")
     out["warm_latency_s"] = {
@@ -1619,20 +1788,25 @@ DP_TRACED = 2  # steps of each form under torch.profiler
 def _kernel_counts():
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
     from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
 
     return {"conv3x3_forward": conv3x3_same.launches["forward"],
             "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
             "conv3x3_recompute": conv3x3_same.launches["recompute"],
             "dblock": fused_dblock.launches,
-            "dblock_recompute": fused_dblock.recompute_launches}
+            "dblock_recompute": fused_dblock.recompute_launches,
+            **{f"gen_epilogue_{k}": v
+               for k, v in gen_epilogue.launches.items()}}
 
 
 def _zero_kernel_counts():
     from gansynth_tpu_torch.kernels.conv import conv3x3_same
     from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
 
     conv3x3_same.launches.update(forward=0, input_grad=0, recompute=0)
     fused_dblock.launches = fused_dblock.recompute_launches = 0
+    gen_epilogue.launches.update(forward=0, backward=0, recompute=0)
 
 
 def dp_step_timing(device, mesh):
@@ -1680,7 +1854,8 @@ def dp_step_timing(device, mesh):
             **busy(lambda name=name: steps(name, DP_TRACED), DP_TRACED, ms),
             "peak_mem_gib": peak[name]}
         traced = forms[name]["kernel_launches"]
-        want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP}
+        want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP,
+                "gen_epilogue": K4_TRACED_PER_STEP}
         if any(traced[k] != v for k, v in want.items()):
             raise AssertionError(f"DP step {name}: kernels a step on the "
                                  f"device {traced}, want {want}")
@@ -1810,7 +1985,8 @@ def remat_step(device):
     if not out["worst_scaled_err"] <= STEP_BAR:
         raise AssertionError(f"remat vs plain step: {errs} (bar {STEP_BAR})")
     rc = out["remat"]["launches"]
-    if not (rc["conv3x3_recompute"] and rc["dblock_recompute"]):
+    if not (rc["conv3x3_recompute"] and rc["dblock_recompute"]
+            and rc["gen_epilogue_recompute"]):
         raise AssertionError(f"remat recomputed no kernel: {rc}")
     if out["remat"]["peak_mem_gib"] >= out["plain"]["peak_mem_gib"]:
         raise AssertionError(f"remat's peak is not lower: {out}")
@@ -1825,6 +2001,7 @@ def serve_data_parallel(config, generator, stage):
     sampler's waves; K1 counted from the service's warm-up to the last
     reply."""
     from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
     from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
@@ -1848,13 +2025,16 @@ def serve_data_parallel(config, generator, stage):
         raise AssertionError(f"data-parallel replies alone differ from the "
                              f"in-process service's: {alone}")
     synthesis_spectrum.launches = 0
+    gen_epilogue.launches["forward"] = 0
     service, message = cli.make_service(args)
     if service is None:
         raise AssertionError(message)
     health, replies = serve_requests(service)
     launches = synthesis_spectrum.launches
-    if launches == 0:
-        raise AssertionError("serve --data-parallel never launched K1")
+    k4_launches = gen_epilogue.launches["forward"]
+    if launches == 0 or k4_launches == 0:
+        raise AssertionError(f"serve --data-parallel launched K1 {launches} "
+                             f"and K4 {k4_launches} times")
     sample = make_seeded_sampler(config, generator, stage)
     served = []
     for i, (pitches, wav) in enumerate(zip(SERVE_REQUESTS, replies)):
@@ -1869,7 +2049,7 @@ def serve_data_parallel(config, generator, stage):
             "determinism": health["determinism"],
             "device_batches": health["device_batches"],
             "alone_max_abs_diff": alone, "served_rel_l2": served,
-            "launches": launches}
+            "launches": launches, "k4_launches": k4_launches}
 
 
 def data_parallel(card, loop_ref, config, generator, stage):
@@ -1928,7 +2108,8 @@ def data_parallel(card, loop_ref, config, generator, stage):
             torch.cuda.synchronize()
             out["launches"][name] = _kernel_counts()
             bad = [k for k in ("conv3x3_forward", "conv3x3_input_grad",
-                               "dblock") if out["launches"][name][k] == 0]
+                               "dblock", *K4_PER_STEP)
+                   if out["launches"][name][k] == 0]
             if bad:
                 raise AssertionError(f"the DP {name} run never launched "
                                      f"{bad}")
@@ -2005,11 +2186,12 @@ def _graph_serving(eager, graphed, name, rungs=GRAPH_RUNGS,
                    inputs=_seeded_inputs, traced_rungs=(1, 16)):
     """One sampler at ``rungs`` (``inputs(b)`` its arguments at batch b):
     the graph's outputs against the eager batch's (to the bit), the
-    capture's seconds, K1's launches a replay, the host ms a batch in
-    turns, and at ``traced_rungs`` a trace of each form (device busy ms,
-    idle share, API launches a batch, and K1 counted by name on the
-    device: once a batch in both forms). Returns the rows and each form's
-    K1 launches over the phase."""
+    capture's seconds, K1's and K4's launches a replay, the host ms a
+    batch in turns, and at ``traced_rungs`` a trace of each form (device
+    busy ms, idle share, API launches a batch, and K1 and K4 counted by
+    name on the device: once and K4_PER_RENDER times a batch in both
+    forms). Returns the rows and each form's launches over the phase
+    (keyed as ``kernels.launch_counts``)."""
     import torch
 
     from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
@@ -2026,33 +2208,36 @@ def _graph_serving(eager, graphed, name, rungs=GRAPH_RUNGS,
         graphed(*args)      # the rung's warm-up and capture
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t
-        before = launched["graph"]["synthesis_spectrum"]
+        before = dict(launched["graph"])
         got = _outputs(graphed(*args))
         torch.cuda.synchronize()
-        k1 = launched["graph"]["synthesis_spectrum"] - before
+        k1, k4 = (launched["graph"][k] - before[k]
+                  for k in ("synthesis_spectrum", "gen_epilogue_forward"))
         for x, y in zip(got, want):
             if not torch.equal(x, y):
                 raise AssertionError(
                     f"{name} B={b}: the graph's outputs differ from the "
                     f"eager batch's by {float((x - y).abs().max()):.3e}")
-        if k1 != 1:
-            raise AssertionError(f"{name} B={b}: {k1} K1 launches a replay")
+        if (k1, k4) != (1, K4_PER_RENDER):
+            raise AssertionError(f"{name} B={b}: {k1} K1 and {k4} K4 "
+                                 "launches a replay")
         calls = {k: (lambda fn=fn: _outputs(fn(*args))[0].cpu())
                  for k, fn in (("eager", eager), ("graph", graphed))}
         times = in_turns(calls, GRAPH_TURNS)
         row = {"equal": True, "capture_s": capture_s,
-               "k1_launches_per_replay": k1}
+               "k1_launches_per_replay": k1, "k4_launches_per_replay": k4}
         for k, fn in calls.items():
             host = times[k]["host_ms"]
             row[k] = {"host_ms": spread(host)}
             if b in traced_rungs:
                 row[k].update(busy(fn, 1, statistics.median(host), 3))
-                traced = row[k]["kernel_launches"]["synthesis_spectrum"]
-                if traced != 1:
-                    raise AssertionError(f"{name} B={b} {k}: K1 ran "
-                                         f"{traced} times a batch")
+                traced = row[k]["kernel_launches"]
+                if (traced["synthesis_spectrum"], traced["gen_epilogue"]) \
+                        != (1, K4_PER_RENDER):
+                    raise AssertionError(f"{name} B={b} {k}: kernels a "
+                                         f"batch on the device {traced}")
         out[str(b)] = row
-    return out, {k: v["synthesis_spectrum"] for k, v in launched.items()}
+    return out, launched
 
 
 def _graph_training(device):
@@ -2120,10 +2305,12 @@ def _graph_training(device):
     launches = per_step["graph"]
     k2 = launches["conv3x3_forward"] + launches["conv3x3_input_grad"]
     if (per_step["graph"] != per_step["eager"] or k2 != GRAPH_K2_PER_STEP
-            or launches["dblock"] != GRAPH_K3_PER_STEP):
+            or launches["dblock"] != GRAPH_K3_PER_STEP
+            or any(launches[k] != n for k, n in K4_PER_STEP.items())):
         raise AssertionError(f"kernel launches a step: {per_step}")
     out["launches_per_step"] = launches
-    want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP}
+    want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP,
+            "gen_epilogue": K4_TRACED_PER_STEP}
     for kind in ("eager", "graph"):
         ms = times[kind]["ms"]
         out[kind] = {
@@ -2146,8 +2333,9 @@ def _graph_training(device):
 def cuda_graphs_phase(card, config, generator, stage, device):
     """Phase 15: the served rungs (in-process and from phase 12's
     artifact) and the training superstep, each CUDA graph against the
-    same work run eagerly; K1 counted over the serving, K2 and K3 over the
-    training, each form apart. One ``{"cuda_graphs": ...}`` line."""
+    same work run eagerly; K1 and K4 counted over the serving, K2, K3 and
+    K4 over the training, each form apart. One ``{"cuda_graphs": ...}``
+    line."""
     from gansynth_tpu_torch.synth.export import (
         ExportedSampler,
         load_sampler_artifact,
@@ -2164,25 +2352,29 @@ def cuda_graphs_phase(card, config, generator, stage, device):
     # the eager form runs the same loaded programs
     exported_eager = ExportedSampler(exported.programs, exported.meta,
                                      exported.device, graphs=False)
-    serving, k1 = {}, {}
+    serving, counts = {}, {}
     for path, eager, graphed in (
             ("in_process",
              make_seeded_sampler(config, generator, stage, graphs=False),
              make_seeded_sampler(config, generator, stage)),
             ("exported", exported_eager, exported)):
-        serving[path], k1[path] = _graph_serving(eager, graphed, path)
+        serving[path], counts[path] = _graph_serving(eager, graphed, path)
     out["serving_s"] = time.perf_counter() - t
     # the keyed sampler of the loop's dumps (B=3), interpolate's batch (9)
     # and evaluate's (61): the host's latents a static input
     t = time.perf_counter()
-    serving["keyed"], k1["keyed"] = _graph_serving(
+    serving["keyed"], counts["keyed"] = _graph_serving(
         make_sampler(config, generator, stage, graphs=False),
         make_sampler(config, generator, stage), "keyed", KEYED_RUNGS,
         _keyed_inputs, (3, 61))
     out["keyed_s"] = time.perf_counter() - t
     out["serving"] = serving
-    out["k1_launches"] = {kind: sum(v[kind] for v in k1.values())
-                          for kind in ("eager", "graph")}
+    out["k1_launches"] = {
+        kind: sum(v[kind]["synthesis_spectrum"] for v in counts.values())
+        for kind in ("eager", "graph")}
+    out["k4_serving_launches"] = {
+        kind: sum(v[kind]["gen_epilogue_forward"] for v in counts.values())
+        for kind in ("eager", "graph")}
     t = time.perf_counter()
     out["training"], launched = _graph_training(device)
     out["training_s"] = time.perf_counter() - t
@@ -2190,6 +2382,9 @@ def cuda_graphs_phase(card, config, generator, stage, device):
         kind: c["conv3x3_forward"] + c["conv3x3_input_grad"]
         for kind, c in launched.items()}
     out["k3_launches"] = {kind: c["dblock"] for kind, c in launched.items()}
+    out["k4_launches"] = {
+        kind: c["gen_epilogue_forward"] + c["gen_epilogue_backward"]
+        for kind, c in launched.items()}
     print(json.dumps({"cuda_graphs": out}), flush=True)
     shutil.rmtree(EXPORT_DIR, ignore_errors=True)
     return out
@@ -2378,6 +2573,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from gansynth_tpu_torch.cli import run_config
     from gansynth_tpu_torch.kernels import _build
+    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
     from gansynth_tpu_torch.kernels.synthesis import (
         _device_taps,
         synthesis_spectrum,
@@ -2457,6 +2653,17 @@ def main() -> int:
           f"({k3['bound_by']}) ({card})")
 
     t = time.perf_counter()
+    k4 = check_gen_epilogue_kernel(device, resources["gen_epilogue"])
+    k4_step = k4["step"]
+    phase("K4 vs plain", t, f"bf16 max abs err {k4['max_abs_err']:.3e}, "
+          f"f32 {k4['max_abs_err_f32']:.3e} (forward within "
+          f"{K4_ULPS['bfloat16']}/{K4_ULPS['float32']} ulp; dz and the bias "
+          f"gradient at the card tests' allowance); a step's 28 forwards "
+          f"and 14 backwards: kernel {k4_step['ms']:.4f} ms (graph "
+          f"{k4_step['graph_ms']:.4f} ms), plain {k4_step['plain_ms']:.4f} "
+          f"ms, bound {k4_step['bound_ms']:.4f} ms (bytes) ({card})")
+
+    t = time.perf_counter()
     generator, step, stage = load_ema_generator(
         os.path.join(FLAGSHIP, "ema.npz"), config.model, device)
     rms, err, snr = render_flagship(device, config, generator, stage)
@@ -2473,16 +2680,20 @@ def main() -> int:
 
     t = time.perf_counter()
     synthesis_spectrum.launches = 0
+    gen_epilogue.launches["forward"] = 0
     health, _ = serve_requests(SynthesisService(
         config, generator, stage=stage, max_batch=MAX_BATCH,
         request_timeout_s=120.0))
     launches = synthesis_spectrum.launches
-    if launches == 0:
-        raise AssertionError("the main path never launched K1")
+    k4_serve = gen_epilogue.launches["forward"]
+    if launches == 0 or k4_serve == 0:
+        raise AssertionError(f"serving launched K1 {launches} and K4 "
+                             f"{k4_serve} times")
     phase("serve", t, f"served {health['requests_served']} requests in "
           f"{health['device_batches']} batches "
           f"({health['coalesced_batches']} coalesced); warm latency "
-          f"{health['warm_latency_s']}; K1 launches {launches}")
+          f"{health['warm_latency_s']}; K1 launches {launches}, K4 "
+          f"{k4_serve}")
 
     del generator
     torch.cuda.empty_cache()
@@ -2626,25 +2837,6 @@ def main() -> int:
           f"{tr['graph']['kernel_launches']} eager "
           f"{tr['eager']['kernel_launches']} ({card})")
 
-    t = time.perf_counter()
-    sm = step_marks_phase(card, device, resources["step_marks"])
-    phase("step marks", t, "first step on the card "
-          f"{sm['eager']['card']['first_step']}, plain "
-          f"{sm['eager']['plain']['first_step']}; between after a "
-          f"{1e3 * MARK_HELD_S:.0f} ms hold card/plain "
-          f"{sm['eager']['card']['between_held_ns'] / 1e6:.3f}/"
-          f"{sm['eager']['plain']['between_held_ns'] / 1e6:.3f} ms, "
-          f"anchored {sm['eager']['card']['between_anchored_ns'] / 1e3:.1f}/"
-          f"{sm['eager']['plain']['between_anchored_ns'] / 1e3:.1f} us; "
-          "traced superstep, us a step trace/totals: " + "; ".join(
-              f"{name} " + ", ".join(f"{p} {t_us:.2f}/{d_us:.2f}"
-                                     for p, (t_us, d_us) in rows.items())
-              for name, rows in sm["traced"].items()
-              if name in ("queued", "held"))
-          + f"; {sm['traced']['marks_traced']} of "
-          f"{sm['traced']['marks_launched']} mark kernels in the trace"
-          + f"; K2 by shape a step {sm['traced']['k2_shapes_per_step']}")
-
     def dp_count(name):
         return sum(launches[name] for launches in dp["launches"].values())
 
@@ -2742,8 +2934,73 @@ def main() -> int:
         "shape": k3["shape"],
         **{k: k3[k] for k in TIMES},
         "resources": resources["dblock"],
+    }, {
+        "name": "gen_epilogue",
+        "route": "cuda",
+        "source": "gansynth_tpu_torch/kernels/csrc/gen_epilogue.cu",
+        "replaces": "gansynth_tpu/models/generator.py GeneratorBlock: "
+                    "bias, LeakyReLU and pixel norm, which XLA fuses",
+        "launches": train["launches"]["gen_epilogue_forward"]
+        + train["launches"]["gen_epilogue_backward"],
+        "launches_forward": train["launches"]["gen_epilogue_forward"],
+        "launches_backward": train["launches"]["gen_epilogue_backward"],
+        "launches_traced_per_step":
+            train["launches_traced_per_step"]["gen_epilogue"],
+        "serve_launches": k4_serve,
+        "loop_launches": (loop_launches["gen_epilogue_forward"]
+                          + loop_launches["gen_epilogue_backward"]),
+        "offline_launches": offline["launches_total"]["gen_epilogue"],
+        "export_launches": exp["k4_launches"],
+        "dp_launches": dp_count("gen_epilogue_forward")
+        + dp_count("gen_epilogue_backward"),
+        "dp_serve_launches": dp["serve"]["k4_launches"],
+        "dp_graph_launches_traced_per_replay":
+            tm["forms"]["group_graph"]["kernel_launches"]["gen_epilogue"],
+        "remat_launches": rm["remat"]["launches"]["gen_epilogue_forward"]
+        + rm["remat"]["launches"]["gen_epilogue_backward"],
+        "remat_recompute_launches":
+            rm["remat"]["launches"]["gen_epilogue_recompute"],
+        "graph_launches": cg["k4_launches"]["graph"]
+        + cg["k4_serving_launches"]["graph"],
+        "graph_eager_launches": cg["k4_launches"]["eager"]
+        + cg["k4_serving_launches"]["eager"],
+        "graph_launches_per_replay":
+            tr["launches_per_step"]["gen_epilogue_forward"]
+            + tr["launches_per_step"]["gen_epilogue_backward"],
+        "graph_launches_traced_per_replay":
+            tr["graph"]["kernel_launches"]["gen_epilogue"],
+        "serving_graph_launches_per_replay": max(
+            row["k4_launches_per_replay"] for rows in sv.values()
+            for row in rows.values()),
+        "max_abs_err": k4["max_abs_err"],
+        "max_abs_err_f32": k4["max_abs_err_f32"],
+        **{k: k4_step[k] for k in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                                   "fraction_of_bound")},
+        "bound_by": "bytes",
+        "shapes": k4["shapes"],
+        "resources": resources["gen_epilogue"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
+
+    t = time.perf_counter()
+    sm = step_marks_phase(card, device, resources["step_marks"])
+    phase("step marks", t, "first step on the card "
+          f"{sm['eager']['card']['first_step']}, plain "
+          f"{sm['eager']['plain']['first_step']}; between after a "
+          f"{1e3 * MARK_HELD_S:.0f} ms hold card/plain "
+          f"{sm['eager']['card']['between_held_ns'] / 1e6:.3f}/"
+          f"{sm['eager']['plain']['between_held_ns'] / 1e6:.3f} ms, "
+          f"anchored {sm['eager']['card']['between_anchored_ns'] / 1e3:.1f}/"
+          f"{sm['eager']['plain']['between_anchored_ns'] / 1e3:.1f} us; "
+          "traced superstep, us a step trace/totals: " + "; ".join(
+              f"{name} " + ", ".join(f"{p} {t_us:.2f}/{d_us:.2f}"
+                                     for p, (t_us, d_us) in rows.items())
+              for name, rows in sm["traced"].items()
+              if name in ("queued", "held"))
+          + f"; {sm['traced']['marks_traced']} of "
+          f"{sm['traced']['marks_launched']} mark kernels in the trace"
+          + f"; K2 by shape a step {sm['traced']['k2_shapes_per_step']}")
+
     print(f"total seconds: {time.perf_counter() - T0:.2f}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
 from gansynth_tpu_torch.models.layers import (
     EqualizedConv,
     EqualizedDense,
@@ -38,8 +39,10 @@ from gansynth_tpu_torch.utils.config import ModelConfig
 
 class GeneratorBlock(nn.Module):
     """One trunk stage: [upsample x2 ->] two 3x3 eq-LR convs, each followed
-    by LeakyReLU and pixel norm. ``conv_kernel`` goes to both stride-1 3x3
-    convs (the up-conv stays on its own lowering, as in the reference)."""
+    by its bias, LeakyReLU and pixel norm in one call of K4
+    (``kernels.gen_epilogue``: the plain chain on the CPU). ``conv_kernel``
+    goes to both stride-1 3x3 convs (the up-conv stays on its own
+    lowering, as in the reference)."""
 
     def __init__(self, in_channels: int, features: int, upsample: bool = True,
                  lrelu_slope: float = 0.2, pn_eps: float = 1e-8,
@@ -63,9 +66,10 @@ class GeneratorBlock(nn.Module):
                                    generator=generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = pixel_norm(leaky_relu(self.conv0(x), self.lrelu_slope), self.pn_eps)
-        return pixel_norm(leaky_relu(self.conv1(x), self.lrelu_slope),
-                          self.pn_eps)
+        for conv in (self.conv0, self.conv1):
+            x = gen_epilogue(conv.unbiased(x), conv.bias, self.lrelu_slope,
+                             self.pn_eps)
+        return x
 
 
 class Generator(nn.Module):

@@ -105,22 +105,26 @@ class EqualizedConv(nn.Module):
                               generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def unbiased(self, x: torch.Tensor) -> torch.Tensor:
+        """The conv without its bias (the generator hands it to K4 with
+        the bias, ``kernels.gen_epilogue``)."""
         kh, kw = self.kernel_size
         c_in = x.shape[-1]
         cdt = self.compute_dtype
         w = (self.weight * he_scale(kh * kw * c_in, self.gain)).to(cdt)
         xc = x.to(cdt)
         if (kh, kw) == (1, 1) and c_in <= 4:
-            y = sum(xc[..., i:i + 1] * w[:, i, 0, 0] for i in range(c_in))
-        elif self.conv_kernel == "pallas" and conv3x3_eligible(
+            return sum(xc[..., i:i + 1] * w[:, i, 0, 0] for i in range(c_in))
+        if self.conv_kernel == "pallas" and conv3x3_eligible(
                 xc.shape, (kh, kw, c_in, w.shape[0])):
-            y = conv3x3_same(xc.contiguous(), w)
-        else:
-            y = F.conv2d(xc.permute(0, 3, 1, 2), w,
-                         padding=(kh // 2, kw // 2)).permute(0, 2, 3, 1)
+            return conv3x3_same(xc.contiguous(), w)
+        return F.conv2d(xc.permute(0, 3, 1, 2), w,
+                        padding=(kh // 2, kw // 2)).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.unbiased(x)
         if self.bias is not None:
-            y = y + self.bias.to(cdt)
+            y = y + self.bias.to(self.compute_dtype)
         return y
 
 
@@ -155,14 +159,18 @@ class EqualizedUpConv(nn.Module):
         self.weight = _normal((features, in_channels, 3, 3), generator)
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def unbiased(self, x: torch.Tensor) -> torch.Tensor:
+        """The up-conv without its bias (as ``EqualizedConv.unbiased``)."""
         cdt = self.compute_dtype
         k4 = _smear_kernel_2x(self.weight * he_scale(9 * x.shape[-1], self.gain))
         wt = k4.flip(-2, -1).transpose(0, 1).to(cdt)
-        y = F.conv_transpose2d(x.to(cdt).permute(0, 3, 1, 2), wt, stride=2,
-                               padding=1).permute(0, 2, 3, 1)
+        return F.conv_transpose2d(x.to(cdt).permute(0, 3, 1, 2), wt, stride=2,
+                                  padding=1).permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.unbiased(x)
         if self.bias is not None:
-            y = y + self.bias.to(cdt)
+            y = y + self.bias.to(self.compute_dtype)
         return y
 
 

@@ -39,11 +39,12 @@ whatever device the export ran on, which launches the CUDA kernel on a
 card and runs the plain version on the CPU. The header's config records
 ``synthesis_kernel`` as the program runs it. A model whose trunk convs
 take K2 (``conv_kernel="pallas"``) keeps them as ``gansynth_torch::conv3x3``
-nodes in the same way. The price: the loading process must have
-registered those operators, that is imported
-``gansynth_tpu_torch.kernels.synthesis`` and ``kernels.conv``, which this
-module does; so the serving host needs this package, though not its
-checkpoints or its training code.
+nodes in the same way, and every generator block's epilogue is a
+``gansynth_torch::gen_epilogue`` node (K4). The price: the loading
+process must have registered those operators, that is imported
+``gansynth_tpu_torch.kernels.synthesis``, ``kernels.conv`` and
+``kernels.gen_epilogue``, which this module does; so the serving host
+needs this package, though not its checkpoints or its training code.
 
 File format (``.gsx``, the reference's layout): an 8-byte magic, a
 big-endian u32 header length, a JSON header (``format``, ``version``,
@@ -82,6 +83,7 @@ from torch.export.passes import move_to_device_pass
 
 # Registers the operators an exported program calls.
 import gansynth_tpu_torch.kernels.conv  # noqa: F401
+import gansynth_tpu_torch.kernels.gen_epilogue  # noqa: F401
 import gansynth_tpu_torch.kernels.synthesis  # noqa: F401
 from gansynth_tpu_torch.synth.sampler import (
     LatentProgram,

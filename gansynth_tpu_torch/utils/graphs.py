@@ -19,9 +19,9 @@ must be a tensor at a fixed address (a static input that the caller
 copies into before a replay); a Python value that it reads is frozen at
 the capture. Kernel launches that the wrappers counted during the capture
 are taken back (a capture launches nothing) and added again at every
-replay (``kernels.launch_counts``, and K2's by shape,
-``kernels.launch_shapes``); the warm-up's launches are real and stay
-counted.
+replay (``kernels.launch_counts``, and K2's and K4's by shape,
+``kernels.launch_shapes`` and ``kernels.gen_epilogue_shapes``); the
+warm-up's launches are real and stay counted.
 
 :class:`GraphedCall` is ``fn(*tensors) -> tensor or tuple of tensors``
 with one graph per input shape (a serving rung), all in one pool: the
@@ -51,8 +51,10 @@ from typing import Callable, Dict, Optional
 import torch
 
 from gansynth_tpu_torch.kernels import (
+    add_gen_epilogue_shapes,
     add_launch_counts,
     add_launch_shapes,
+    gen_epilogue_shapes,
     launch_counts,
     launch_shapes,
 )
@@ -113,6 +115,7 @@ class Graph:
         if before_capture is not None:
             before_capture()
         before, shapes = launch_counts(), launch_shapes()
+        epilogue_shapes = gen_epilogue_shapes()
         t0 = time.perf_counter()
         try:
             self._graph, self.outputs = _capture(fn, self.device, pool,
@@ -121,8 +124,12 @@ class Graph:
         finally:
             self.launches = _delta(launch_counts(), before)
             self.shapes = _delta(launch_shapes(), shapes)
+            self.epilogue_shapes = _delta(gen_epilogue_shapes(),
+                                          epilogue_shapes)
             add_launch_counts({k: -v for k, v in self.launches.items()})
             add_launch_shapes({k: -v for k, v in self.shapes.items()})
+            add_gen_epilogue_shapes({k: -v for k, v in
+                                     self.epilogue_shapes.items()})
 
     def pool(self):
         return self._graph.pool()
@@ -131,6 +138,7 @@ class Graph:
         self._graph.replay()
         add_launch_counts(self.launches)
         add_launch_shapes(self.shapes)
+        add_gen_epilogue_shapes(self.epilogue_shapes)
         return self.outputs
 
 

@@ -189,6 +189,14 @@ def test_conv_kernel_stays_in_an_exported_graph():
                                    rtol=0, atol=0)
 
 
+def test_generator_epilogue_stays_in_an_exported_graph(configs, gen):
+    """Each generator block's two epilogues (K4) trace as one
+    ``gansynth_torch::gen_epilogue`` node each; on the CPU the node runs
+    the plain chain (the artifact's roundtrip above holds its values)."""
+    ops = _ops(X.export_sampler(configs[1], gen, STAGE).graph_module)
+    assert ops.count("gansynth_torch.gen_epilogue.default") == 2 * (STAGE + 1)
+
+
 def test_static_batch_rejects_other_sizes(configs, gen, tmp_path):
     path = X.save_sampler_artifact(str(tmp_path / "static.gsx"), configs[1],
                                    gen, step=1, stage=STAGE, batch=2)

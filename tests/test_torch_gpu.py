@@ -18,7 +18,8 @@ K1 are those of ``tests/test_pallas_kernels.py``: spectrum within atol
 held to their plain versions (cuDNN, TF32 off) at the bars of
 ``tests/test_pallas_conv.py`` and ``tests/test_pallas_dblock.py`` in f32,
 and within 3e-2 of the output's scale in bf16 (both sides accumulate in
-f32 and round once to bf16, whose ulp is 2**-8 of the value).
+f32 and round once to bf16, whose ulp is 2**-8 of the value). K4 is held
+to the chain it replaces in ulps of the result's type (see its test).
 """
 
 import dataclasses
@@ -853,3 +854,170 @@ def test_the_traced_between_holds_across_a_host_held_gap(cuda_device):
         assert device_us >= 1e6 * gap
         assert abs(traced_us - device_us) <= 5.0, (gap, traced_us,
                                                    device_us)
+
+
+# K4 at the seven epilogue shapes of the stage-6 step at batch 8 (each
+# block's two convs share one): [B, H, W, C].
+K4_SHAPES = [(8, 2, 16, 256), (8, 4, 32, 256), (8, 8, 64, 256),
+             (8, 16, 128, 256), (8, 32, 256, 256), (8, 64, 512, 128),
+             (8, 128, 1024, 64)]
+K4_ULPS = {torch.bfloat16: 1, torch.float32: 8}
+
+
+def _ulp(x, dtype):
+    """The spacing of ``dtype`` at |x| (x in float32)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.finfo(dtype).eps * torch.exp2((e - 1).float())
+
+
+def _within_ulps(got, want, ulps, atol=0.0):
+    """Elementwise within ``ulps`` units in the last place of the larger
+    of the two, plus ``atol``."""
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    err = (got.float() - want.float()).abs()
+    bad = err > ulps * _ulp(big, want.dtype) + atol
+    assert not bool(bad.any()), (int(bad.sum()), float(err.max()))
+
+
+def _k4_inputs(shape, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(shape[1] * 31 + 7)
+    z = (2 * torch.randn(shape, generator=gen, device=device)).to(dtype)
+    bias = 0.5 * torch.randn(shape[-1], generator=gen, device=device)
+    g = torch.randn(shape, generator=gen, device=device).to(dtype)
+    return z, bias, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K4_SHAPES)
+def test_gen_epilogue_matches_plain(cuda_device, dtype, shape):
+    """K4 against the chain it replaces (autograd through the plain ops on
+    the card): the output and the pixel norm's adjoint dx within 1 bf16
+    ulp (8 in float32: the pixel norm's sums run in another order), dx
+    also within 2**-16 of its row's largest value where the adjoint's
+    two terms cancel. dz is dx where the LeakyReLU passes it and
+    round(dx * slope) where it scales it, so there it may also differ
+    by the slope times dx's ulp and one ulp of its own rounding. The
+    bias gradient within 1 ulp and 1e-5 of its sum of |dz| (float32 sums
+    over the rows in another order). The plain version of the kernel's
+    backward is held to the kernel the same way."""
+    from gansynth_tpu_torch.kernels import gen_epilogue as K4
+    from gansynth_tpu_torch.utils.device import slope_in
+
+    z, bias, g = _k4_inputs(shape, dtype, cuda_device)
+    before = dict(K4.gen_epilogue.launches)
+    grads = []
+    for fn in (K4.gen_epilogue, K4.gen_epilogue_plain):
+        zr, br = z.clone().requires_grad_(), bias.clone().requires_grad_()
+        y = fn(zr, br, 0.2, 1e-8)
+        y.backward(g)
+        grads.append((y.detach(), zr.grad, br.grad))
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in K4.gen_epilogue.launches.items()} \
+        == {"forward": 1, "backward": 1, "recompute": 0}
+    (y, dz, db), (yp, dzp, dbp) = grads
+    ulps = K4_ULPS[dtype]
+    _within_ulps(y, yp, ulps)
+    slope = slope_in(dtype, 0.2)
+    passed = (z + bias.to(dtype)) > 0
+    dx = torch.where(passed, dzp.float(), dzp.float() / slope)
+    cancel = 2.0 ** -16 * dx.abs().amax(-1, keepdim=True)
+    scaled = slope * ulps * _ulp(dx, dtype) + _ulp(dzp, dtype)
+    cancel = torch.where(passed, cancel, slope * cancel + scaled)
+    _within_ulps(dz, dzp, ulps, cancel)
+    assert db.dtype == dbp.dtype == torch.float32
+    db_t, dbp_t = db.to(dtype), dbp.to(dtype)
+    assert torch.equal(db_t.float(), db) and torch.equal(dbp_t.float(), dbp)
+    _within_ulps(db_t, dbp_t, 1,
+                 1e-5 * dzp.float().abs().sum(dim=(0, 1, 2)))
+    dz_plain, db_plain = K4.gen_epilogue_backward_plain(z, bias, g)
+    _within_ulps(dz, dz_plain, ulps, cancel)
+    _within_ulps(db.to(dtype), db_plain.to(dtype), 1,
+                 1e-5 * dzp.float().abs().sum(dim=(0, 1, 2)))
+
+
+@pytest.mark.gpu
+def test_gen_epilogue_graph_replay_equals_eager(cuda_device):
+    """K4's forward and backward (bias gradient included) captured in a
+    CUDA graph give an eager run's bits at every replay: the bias
+    gradient's partial sums are added in a fixed order, without atomics.
+    The capture's launches are taken back and each replay adds them."""
+    from gansynth_tpu_torch.kernels import gen_epilogue as K4
+    from gansynth_tpu_torch.kernels import gen_epilogue_shapes
+    from gansynth_tpu_torch.utils import graphs
+
+    shape = (8, 64, 512, 128)
+    z, bias, g = _k4_inputs(shape, torch.bfloat16, cuda_device)
+
+    def run():
+        y = K4._forward_cuda(z, bias, 0.2, 1e-8)
+        return (y, *K4._backward_cuda(z, bias, g, 0.2, 1e-8, True))
+
+    want = run()
+    graph = graphs.Graph(run, cuda_device)
+    assert graph.launches["gen_epilogue_forward"] == 1
+    assert graph.epilogue_shapes == {("forward", *shape): 1,
+                                     ("backward", *shape): 1}
+    shapes = gen_epilogue_shapes()
+    for _ in range(3):
+        got = graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert gen_epilogue_shapes()[("backward", *shape)] \
+        == shapes[("backward", *shape)] + 3
+    again = run()
+    for a, b in zip(again, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_a_step_launches_k4_at_every_generator_epilogue(cuda_device):
+    """A 3-step cached superstep at the flagship's widths (stage 6, batch
+    2, bf16): every step launches K4's forward 28 times (14 in the
+    critic update's no-grad G, 14 in the generator update) and its
+    backward 14 times, eagerly and in each replay of the step's graph, by
+    the wrappers' counts, by shape (4 forward and 2 backward at each of
+    the seven block shapes) and by name in a profiler trace of the
+    replays (each backward with its bias sum). K4 takes its tensors as
+    they come and refuses one it would have to copy (``_check``), so the
+    step also shows that no ``.contiguous()`` copy stands in front of it."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import gen_epilogue_shapes, launch_counts
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+
+    config, state, waves, pitches = _flagship_width_state(cuda_device,
+                                                          False)
+    alphas = [1.0] * 3
+    keys = ("gen_epilogue_forward", "gen_epilogue_backward",
+            "gen_epilogue_recompute")
+    want = dict(zip(keys, (28, 14, 0)))
+    eager = make_cached_superstep(config, 6, 6, graphs=False)
+    before, shapes = launch_counts(), gen_epilogue_shapes()
+    eager(copy.deepcopy(state), waves, pitches, alphas)
+    torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    per_shape = {k: (v - shapes.get(k, 0)) / 3
+                 for k, v in gen_epilogue_shapes().items()
+                 if v != shapes.get(k, 0)}
+    blocks = [(2, 2 << i, 16 << i, config.model.stage_channels(i))
+              for i in range(7)]
+    assert per_shape == {**{("forward", *b): 4 for b in blocks},
+                         **{("backward", *b): 2 for b in blocks}}
+    graphed = make_cached_superstep(config, 6, 6)
+    graphed(state, waves, pitches, alphas)   # the capture
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(state, waves, pitches, alphas)
+        torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for part, n in (("gen_epilogue_fwd_bf16", 28), ("gen_epilogue_bwd_bf16", 14),
+                    ("gen_epilogue_bias_sum_bf16", 14)):
+        assert sum(part in name for name in names) == 3 * n, part

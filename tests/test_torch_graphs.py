@@ -36,9 +36,10 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
   superstep counts its steps, every phase, and totals that sum to the
   host's time from its first step's start to its last one's end; with
   the capture simulated each replay adds one step, the warm-up is undone
-  and a failed capture leaves the count; K2's launches by shape
-  (``kernels.launch_shapes``) are taken back at a capture and added at
-  every replay, and ``launch_counts`` keeps its keys.
+  and a failed capture leaves the count; K2's and K4's launches by shape
+  (``kernels.launch_shapes``, ``kernels.gen_epilogue_shapes``) are taken
+  back at a capture and added at every replay, and ``launch_counts``
+  keeps its keys.
 """
 
 import os
@@ -58,7 +59,12 @@ from gansynth_tpu.train.step import real_image_for_stage as j_real
 from gansynth_tpu_torch.data.fixtures import note_batch
 from gansynth_tpu_torch.kernels import conv as K2
 from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import launch_counts, launch_shapes
+from gansynth_tpu_torch.kernels import gen_epilogue as K4
+from gansynth_tpu_torch.kernels import (
+    gen_epilogue_shapes,
+    launch_counts,
+    launch_shapes,
+)
 from gansynth_tpu_torch.kernels import synthesis as K1
 from gansynth_tpu_torch.models.generator import Generator
 from gansynth_tpu_torch.serve import SynthesisService
@@ -420,7 +426,7 @@ def test_on_device_is_eager_off_a_card():
 def test_traced_kernel_names_map_to_the_port_kernels():
     """``profiling.port_kernel`` maps the device functions of
     ``kernels/csrc`` (as a trace names them: demangled, with template
-    arguments, or mangled) to K1/K2/K3 and nothing else to any: the
+    arguments, or mangled) to K1/K2/K3/K4 and nothing else to any: the
     step's mark kernels are none of them."""
     import re
 
@@ -431,7 +437,7 @@ def test_traced_kernel_names_map_to_the_port_kernels():
     for name in os.listdir(csrc):
         if name.endswith(".cu"):
             with open(os.path.join(csrc, name)) as f:
-                for fn in re.findall(r"__global__ void[^\n]*\n(\w+)",
+                for fn in re.findall(r"__global__ void[^\n]*\n\s*(\w+)",
                                      f.read()):
                     found[fn] = profiling.port_kernel(fn)
     assert found == {"synthesis_spectrum_gather": "synthesis_spectrum",
@@ -439,6 +445,9 @@ def test_traced_kernel_names_map_to_the_port_kernels():
                      "conv3x3_nhwc_bf16_wgmma": "conv3x3",
                      "dblock_nhwc_f32_fma": "dblock",
                      "dblock_nhwc_bf16_wgmma": "dblock",
+                     **{f"gen_epilogue_{fn}_{t}": "gen_epilogue"
+                        for fn in ("fwd", "bwd", "bias_sum")
+                        for t in ("bf16", "f32")},
                      **{f"step_mark_{m}": None for m in (
                          "start", "frontend", "critic", "generator",
                          "end", "anchor")}}
@@ -632,10 +641,12 @@ def test_replays_add_the_captures_steps(simulated):
 
 
 def _launch_shapes():
-    """What K2's wrapper records for a small 'kernel program'."""
+    """What K2's and K4's wrappers record for a small 'kernel program'."""
     for _ in range(2):
         K2._count("forward", 8, 64, 512, 128, 256)
     K2._count("input_grad", 8, 64, 512, 256, 128)
+    K4._count("forward", torch.empty(8, 128, 1024, 64, device="meta"))
+    K4._count("backward", torch.empty(8, 64, 512, 128, device="meta"))
     return "outputs"
 
 
@@ -643,21 +654,26 @@ def test_graph_shape_bookkeeping(simulated):
     keys = set(launch_counts())
     assert keys == {"conv3x3_forward", "conv3x3_input_grad",
                     "conv3x3_recompute", "dblock", "dblock_recompute",
-                    "synthesis_spectrum"}
+                    "synthesis_spectrum", "gen_epilogue_forward",
+                    "gen_epilogue_backward", "gen_epilogue_recompute"}
     one = {("forward", 8, 64, 512, 128, 256): 2,
            ("input_grad", 8, 64, 512, 256, 128): 1}
-    before = launch_shapes()
+    k4 = {("forward", 8, 128, 1024, 64): 1, ("backward", 8, 64, 512, 128): 1}
+    before, k4_before = launch_shapes(), gen_epilogue_shapes()
     g = graphs.Graph(_launch_shapes, "cpu", warmup=2)
-    captured = launch_shapes()
+    captured, k4_captured = launch_shapes(), gen_epilogue_shapes()
     assert _delta(captured, before) == {k: 2 * v for k, v in one.items()}
-    assert g.shapes == one
+    assert _delta(k4_captured, k4_before) == {k: 2 * v for k, v in k4.items()}
+    assert g.shapes == one and g.epilogue_shapes == k4
     for _ in range(3):
         g.replay()
     assert _delta(launch_shapes(), captured) == {k: 3 * v
                                                  for k, v in one.items()}
+    assert _delta(gen_epilogue_shapes(), k4_captured) == {
+        k: 3 * v for k, v in k4.items()}
     assert set(launch_counts()) == keys
     simulated["fail"] = "operation not permitted when stream is capturing"
-    mark = launch_shapes()
+    mark, k4_mark = launch_shapes(), gen_epilogue_shapes()
     with pytest.raises(RuntimeError, match="capturing"):
         graphs.Graph(_launch_shapes, "cpu", warmup=0)
-    assert launch_shapes() == mark
+    assert launch_shapes() == mark and gen_epilogue_shapes() == k4_mark

@@ -16,7 +16,12 @@ import torch
 
 from gansynth_tpu_torch.kernels import conv as K2
 from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import launch_counts, launch_shapes
+from gansynth_tpu_torch.kernels import gen_epilogue as K4
+from gansynth_tpu_torch.kernels import (
+    gen_epilogue_shapes,
+    launch_counts,
+    launch_shapes,
+)
 from gansynth_tpu_torch.kernels import synthesis as K1
 from gansynth_tpu_torch.utils import graphs
 
@@ -24,6 +29,8 @@ from gansynth_tpu_torch.utils import graphs
 def _set_count(name, value):
     if name.startswith("conv3x3_"):
         K2.conv3x3_same.launches[name[len("conv3x3_"):]] = value
+    elif name.startswith("gen_epilogue_"):
+        K4.gen_epilogue.launches[name[len("gen_epilogue_"):]] = value
     elif name == "dblock":
         K3.fused_dblock.launches = value
     elif name == "dblock_recompute":
@@ -34,7 +41,7 @@ def _set_count(name, value):
 
 class FakeGraph:
     """A captured ``fn``: a replay reruns it with its launches' counting,
-    by wrapper and by K2's shape, left to the bookkeeping (``replays``
+    by wrapper and by K2's and K4's shape, left to the bookkeeping (``replays``
     counts them) and copies what it returns into the capture's outputs (a
     tensor or a tuple of them)."""
 
@@ -44,11 +51,14 @@ class FakeGraph:
     def replay(self):
         self.replays += 1
         saved, shapes = launch_counts(), launch_shapes()
+        epilogue_shapes = gen_epilogue_shapes()
         out = self.fn()
         for k, v in saved.items():   # a replay's counts are the Graph's
             _set_count(k, v)
-        K2.conv3x3_same.shapes.clear()
-        K2.conv3x3_same.shapes.update(shapes)
+        for record, kept in ((K2.conv3x3_same.shapes, shapes),
+                             (K4.gen_epilogue.shapes, epilogue_shapes)):
+            record.clear()
+            record.update(kept)
         if torch.is_tensor(self.outputs):
             self.outputs.copy_(out)
         elif isinstance(self.outputs, tuple):
