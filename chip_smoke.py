@@ -10,9 +10,9 @@ raises, so the exit code is non-zero):
 
 1. the card's ``name, power.limit`` line from ``nvidia-smi``;
 2. build the four kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
-   critic block, K4 generator epilogue) and the training step's mark
-   kernels with plain ``nvcc``, one process each, all at once, and print
-   their ``ptxas`` lines;
+   critic block, K4 generator epilogue), K3's backward kernels and the
+   training step's mark kernels with plain ``nvcc``, one process each,
+   all at once, and print their ``ptxas`` lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
    of the service, at the training loop's sample batch (``SAMPLE_BATCH``)
    and at the offline CLI's batches (``OFFLINE_BATCHES``: 8, 9, 61), and
@@ -31,7 +31,9 @@ raises, so the exit code is non-zero):
    the path as the reference's does;
 5. hold K3 to the literal chain at the flagship shape [8, 128, 1024, 64]
    -> 128 in bf16 and f32, with first- and second-order gradients at
-   batch 1, and time it in bf16;
+   batch 1 (bf16's first order at most ``ROUTE_MARGIN`` times as far from
+   the chain's float64 gradients as autograd of the bf16 chain), and time
+   it in bf16;
 6. render three flagship notes (``runs/flagship_r4``, bf16, stage 6)
    through the seeded sampler, and one note in float32 on the card
    against the same note on the CPU, ``F32_NOTE_RUNS`` times, each run
@@ -197,6 +199,22 @@ raises, so the exit code is non-zero):
     back to back and replayed from a CUDA graph, beside the chain and
     the byte bound, and a step's 28 forwards and 14 backwards summed.
     One ``{"k4_check": ...}`` line.
+18. K3's backward (``kernels/csrc/dblock_grad.cu`` and the saving
+    instance of ``csrc/dblock.cu``), run after phase 17
+    (``check_dblock_backward``): at the flagship shape in bf16 and
+    float32 the saving forward's y against the plain forward's to the
+    bit, its a0 and z1 bits against the chain's (the bits' ties
+    reported), the spread and mask kernels against their plain versions,
+    the kernel route's gradients against the plain version of the route
+    and against the chain recomputed (in bf16, where the two differ at
+    the ties, both held to the chain's float64 gradients by relative L2
+    error, ``ROUTE_MARGIN``); in bf16 the
+    saving forward's extra time, each kernel, the whole kernel-route
+    backward and the plain one replayed from a CUDA graph beside the
+    byte bounds, and a step's 4 calls of each. Phases 8 and 15 count a
+    step's backwards by route (``K3_BACKWARD_PER_STEP``: 4 kernel, 1
+    plain) and its ``dblock_grad_`` kernels by name. One
+    ``{"k3_backward_check": ...}`` line.
 
 A replayed graph launches nothing through the wrappers: their counts add
 what the capture counted at each replay (``kernels.add_launch_counts``).
@@ -230,8 +248,8 @@ F32_PEAK_FLOPS = 67e12     # H100 SXM, float32 outside the tensor cores
 BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
-KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "gen_epilogue",
-           "step_marks")
+KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "dblock_grad",
+           "gen_epilogue", "step_marks")
 # (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
 # the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
 # conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
@@ -438,6 +456,46 @@ def require(err, ref, bar, what):
     if not err <= bar * ref:
         raise AssertionError(f"{what}: max abs err {err:.3e} > {bar} * "
                              f"{ref:.3e}")
+
+
+# K3's kernel route's bf16 gradients may lie at most ROUTE_MARGIN times
+# as far from the float64 gradients as the plain bf16 route's, by
+# relative L2 error. Both routes round g_z1 and g_z0 alike, which
+# dominates the bias gradients' error, so their ratio lies near 1; the
+# 10 % takes the ties where the two routes' masks differ, while a wrong
+# mask or a0 moves an element by (1 - slope) of its gradient.
+ROUTE_MARGIN = 1.1
+
+
+def float64_grads(args, g, slope=0.2):
+    """K3's chain's gradients for the gradient ``g`` of y, in float64 at
+    the values the bf16 routes compute with (the weights and biases
+    rounded to x's type, the slope in x's type)."""
+    import torch
+
+    from gansynth_tpu_torch.kernels.dblock import dblock_plain
+    from gansynth_tpu_torch.utils.device import slope_in
+
+    dt = args[0].dtype
+    xs = [a.detach().to(dt).double().requires_grad_() for a in args]
+    y = dblock_plain(*xs, slope_in(dt, slope))
+    return torch.autograd.grad(y, xs, g.double())
+
+
+def no_further_from_truth(got, plain, truth, what):
+    """Each of ``got``'s gradients has a relative L2 error against
+    ``truth`` of at most ROUTE_MARGIN times the ``plain`` one's; returns
+    both errors, [[got, plain], ...]."""
+    errs = []
+    for i, (a, p, t) in enumerate(zip(got, plain, truth)):
+        norm = float(t.norm())
+        e = [float((x.double() - t).norm()) / norm for x in (a, p)]
+        if not e[0] <= ROUTE_MARGIN * e[1]:
+            raise AssertionError(
+                f"{what}, input {i}: relative L2 error {e[0]:.4e} > "
+                f"{ROUTE_MARGIN} * the plain route's {e[1]:.4e}")
+        errs.append(e)
+    return errs
 
 
 def randn(shape, device, seed, dtype, scale=1.0):
@@ -685,16 +743,23 @@ def check_dblock_kernel(device):
                 bound_ms=bound_ms, bound_by=bound_by)
             result["fraction_of_bound"] = bound_ms / result["ms"]
         del args
-        # first order (fixed cotangent) and the GP second order, batch 1
+        # first order (fixed cotangent) and the GP second order, batch 1;
+        # in bf16 the first order differentiates the kernel's own forward,
+        # whose z1 signs differ from the chain's at ties (phase 18), so both
+        # routes are held to the chain's float64 gradients
         small = [a.requires_grad_() for a in inputs(1, dtype, seed=30)]
         r = randn((1, h // 2, w // 2, c1), device, 40, dtype)
         g_k = torch.autograd.grad((fused_dblock(*small, 0.2) * r).sum(), small)
         g_p = torch.autograd.grad((dblock_plain(*small, 0.2) * r).sum(), small)
-        row["grad"] = 0.0
-        for i, (a, b_) in enumerate(zip(g_k, g_p)):
-            err, ref = close_err(a, b_)
-            require(err, ref, gbar, f"K3 {name} first order, input {i}")
-            row["grad"] = max(row["grad"], err)
+        if dtype == torch.bfloat16:
+            row["grad_rel_l2"] = no_further_from_truth(
+                g_k, g_p, float64_grads(small, r), f"K3 {name} first order")
+        else:
+            row["grad"] = 0.0
+            for i, (a, b_) in enumerate(zip(g_k, g_p)):
+                err, ref = close_err(a, b_)
+                require(err, ref, gbar, f"K3 {name} first order, input {i}")
+                row["grad"] = max(row["grad"], err)
 
         def gp(fn):
             gx = torch.autograd.grad(fn(*small, 0.2).sum(), small[0],
@@ -840,6 +905,134 @@ def check_gen_epilogue_kernel(device, resources):
     return result
 
 
+# K3's backward, a stage-6 step: 4 calls through the kernels (real, fake,
+# the interpolates' forward node, the generator update), 1 through the
+# plain adjoints (the penalty's create_graph call); each kernel-route call
+# launches the spread, the mask kernel and their two bias sums.
+K3_BACKWARD_PER_STEP = {"dblock_backward": 4, "dblock_backward_plain": 1}
+K3_GRAD_TRACED_PER_STEP = 4 * 4
+
+
+def check_dblock_backward(device, resources):
+    """Phase 18: K3's backward from what its forward keeps, at the flagship
+    shape in bf16 and float32. The saving forward's y against the plain
+    forward's to the bit, its a0 against the chain's at the forward's bar
+    and its z1 bits against the chain's (ties: elements where they
+    differ); the spread and mask kernels against their plain versions
+    (g_z to the bit, the bias gradients within 1 ulp and 1e-5 of the sum
+    of |g_z|); the kernel route's five gradients against the plain
+    versions of its kernels on the same a0 and mask (the card tests'
+    bars), and against ``dblock_backward_plain`` (the chain recomputed):
+    in float32 at the bar, in bf16, where the two differ at the ties, each
+    at most ROUTE_MARGIN times as far from the chain's float64 gradients
+    as the plain route's (the max difference reported). In bf16 each part
+    replayed from a CUDA graph (the device's time), beside its byte bound
+    at the HBM rate, and a step's 4 kernel-route backwards against 4 plain
+    ones."""
+    import torch
+
+    from gansynth_tpu_torch.kernels import dblock as K3
+    from gansynth_tpu_torch.utils.kernel_ab import graph_ms
+
+    b, h, w, c1 = K3_SHAPE
+    result = {"shape": [b, h, w, 64, c1], "resources": resources}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        args = [randn((b, h, w, 64), device, 50, dtype),
+                randn((64, 64, 3, 3), device, 51, torch.float32, 0.06),
+                randn((64,), device, 52, torch.float32, 0.1),
+                randn((c1, 64, 3, 3), device, 53, torch.float32, 0.06),
+                randn((c1,), device, 54, torch.float32, 0.1)]
+        g = randn((b, h // 2, w // 2, c1), device, 55, dtype)
+        y, a0, mask = K3._launch(*args, 0.2, True)
+        y_plain = K3._launch(*args, 0.2, False)[0]
+        _, a0_chain, mask_chain = K3.dblock_saving_plain(*args, 0.2)
+        torch.cuda.synchronize()
+        if not torch.equal(y, y_plain):
+            raise AssertionError(f"K3 {name}: the saving forward's y is not "
+                                 "the plain forward's")
+        fwd_bar, grad_bar = ((1e-5, 1e-4) if dtype == torch.float32
+                             else (3e-2, 3e-2))
+        err, ref = close_err(a0, a0_chain)
+        require(err, ref, fwd_bar, f"K3 {name} kept a0")
+        ties = int((K3.unpack_mask(mask, c1)
+                    != K3.unpack_mask(mask_chain, c1)).sum())
+        row = {"a0": err, "z1_ties": ties,
+               "z1_tie_share": ties / (b * h * w * c1)}
+        del y, y_plain, a0_chain, mask_chain
+        g_a0 = randn(a0.shape, device, 56, dtype)
+        for part, got, want in (
+                ("spread", K3._spread(g, mask, 0.2, True),
+                 K3.spread_plain(g, mask, 0.2)),
+                ("mask", K3._mask_grad(a0, g_a0, 0.2, True),
+                 K3.mask_grad_plain(a0, g_a0, 0.2))):
+            torch.cuda.synchronize()
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"K3 {name} {part} kernel: g_z is not "
+                                     "its plain version's")
+            row[f"{part}_dbias"] = within_ulps(
+                got[1].to(dtype), want[1].to(dtype), 1,
+                1e-5 * want[0].float().abs().sum((0, 1, 2)),
+                f"K3 {name} {part} kernel's bias gradient")
+            del got, want
+        grads = K3.dblock_backward_saved(*args, a0, mask, g)
+        plain = K3.dblock_backward_plain(*args, g)
+        row["grad"], row["grad_vs_chain"] = 0.0, []
+        for i, (a, b_, c_) in enumerate(zip(
+                grads, K3.dblock_backward_saved_plain(*args, a0, mask, g),
+                plain)):
+            err, ref = close_err(a, b_)
+            require(err, ref, grad_bar, f"K3 {name} kernel route, input {i}")
+            row["grad"] = max(row["grad"], err)
+            err, ref = close_err(a, c_)
+            if dtype == torch.float32:
+                require(err, ref, grad_bar,
+                        f"K3 {name} kernel route against the chain, input {i}")
+            row["grad_vs_chain"].append(err / ref)
+        if dtype == torch.bfloat16:
+            row["grad_rel_l2"] = no_further_from_truth(
+                grads, plain, float64_grads(args, g),
+                f"K3 {name} kernel route")
+        del grads, plain
+        if dtype == torch.bfloat16:
+            u, v = b * h * w * 64 * 2.0, b * h * w * c1 * 2.0
+            mb = b * h * w * K3.mask_bytes(c1)
+            nbytes = {"forward_saving_extra": u + mb,
+                      "spread": v / 4 + mb + v + 8.0 * 528 * c1,
+                      "mask": 3 * u + 8.0 * 528 * 64}
+            times = {
+                "forward": graph_ms(lambda: K3._launch(*args, 0.2, False)),
+                "forward_saving": graph_ms(
+                    lambda: K3._launch(*args, 0.2, True)),
+                "spread": graph_ms(lambda: K3._spread(g, mask, 0.2, True)),
+                "mask": graph_ms(
+                    lambda: K3._mask_grad(a0, g_a0, 0.2, True)),
+                "backward": graph_ms(lambda: K3.dblock_backward_saved(
+                    *args, a0, mask, g), calls=5),
+                "backward_plain": graph_ms(lambda: K3.dblock_backward_plain(
+                    *args, g), calls=5)}
+            times["forward_saving_extra"] = (times["forward_saving"]
+                                             - times["forward"])
+            for part, n in nbytes.items():
+                bound_ms = 1e3 * n / HBM_BYTES_PER_S
+                row[part] = {"graph_ms": times[part], "bound_ms": bound_ms,
+                             "fraction_of_bound": bound_ms / times[part]}
+            for part in ("forward", "forward_saving", "backward",
+                         "backward_plain"):
+                row[part] = {"graph_ms": times[part]}
+            # a step: 4 saving forwards and kernel-route backwards against
+            # 4 plain forwards and plain backwards
+            row["step_4_calls"] = {
+                "kernel_route_ms": 4 * (times["forward_saving"]
+                                        + times["backward"]),
+                "plain_ms": 4 * (times["forward"] + times["backward_plain"])}
+        result[name] = row
+        del args, g, a0, mask, g_a0
+        torch.cuda.empty_cache()
+    print(json.dumps({"k3_backward_check": result}), flush=True)
+    return result
+
+
 def training_config(dtype=None, kernels="pallas"):
     """The flagship's config after the release step, with the kernels
     switched on (or off) and, optionally, another compute type."""
@@ -897,6 +1090,7 @@ def train_steps(device):
 
     conv3x3_same.launches.update(forward=0, input_grad=0)
     fused_dblock.launches = 0
+    fused_dblock.backwards.update(kernel=0, plain=0)
     gen_epilogue.launches.update(forward=0, backward=0)
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
@@ -911,6 +1105,8 @@ def train_steps(device):
     launches = {"conv3x3_forward": conv3x3_same.launches["forward"],
                 "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
                 "dblock": fused_dblock.launches,
+                "dblock_backward": fused_dblock.backwards["kernel"],
+                "dblock_backward_plain": fused_dblock.backwards["plain"],
                 **{f"gen_epilogue_{k}": gen_epilogue.launches[k]
                    for k in ("forward", "backward")}}
     bad = [k for k, v in launches.items() if v == 0]
@@ -919,6 +1115,11 @@ def train_steps(device):
     if any(launches[k] != n * TRAIN_STEPS for k, n in K4_PER_STEP.items()):
         raise AssertionError(f"K4 launches over {TRAIN_STEPS} steps: "
                              f"{launches}, want {K4_PER_STEP} a step")
+    if any(launches[k] != n * TRAIN_STEPS
+           for k, n in K3_BACKWARD_PER_STEP.items()):
+        raise AssertionError(f"K3 backwards over {TRAIN_STEPS} steps: "
+                             f"{launches}, want {K3_BACKWARD_PER_STEP} a "
+                             "step")
     # The counts above add a capture's counts at each replay; one more
     # replay under torch.profiler counts the kernels that ran by name.
     traced = kernel_launches(lambda: step_fn(state, waves, pitches, alpha))
@@ -928,7 +1129,9 @@ def train_steps(device):
                # each backward with its bias sum
                "gen_epilogue": (launches["gen_epilogue_forward"]
                                 + 2 * launches["gen_epilogue_backward"])
-               / TRAIN_STEPS}
+               / TRAIN_STEPS,
+               # the spread, the mask kernel and their two bias sums
+               "dblock_grad": 4 * launches["dblock_backward"] / TRAIN_STEPS}
     if any(traced[k] != v for k, v in counted.items()):
         raise AssertionError(f"kernels a step: traced {traced}, counted "
                              f"{counted}")
@@ -1045,6 +1248,7 @@ def train_loop(card, single_step_ms):
     synthesis_spectrum.launches = 0
     conv3x3_same.launches.update(forward=0, input_grad=0)
     fused_dblock.launches = 0
+    fused_dblock.backwards.update(kernel=0, plain=0)
     gen_epilogue.launches.update(forward=0, backward=0)
     t = time.perf_counter()
     if cli.main(loop_argv(run_a, LOOP_STEPS)) != 0:
@@ -1795,6 +1999,8 @@ def _kernel_counts():
             "conv3x3_recompute": conv3x3_same.launches["recompute"],
             "dblock": fused_dblock.launches,
             "dblock_recompute": fused_dblock.recompute_launches,
+            "dblock_backward": fused_dblock.backwards["kernel"],
+            "dblock_backward_plain": fused_dblock.backwards["plain"],
             **{f"gen_epilogue_{k}": v
                for k, v in gen_epilogue.launches.items()}}
 
@@ -1806,6 +2012,7 @@ def _zero_kernel_counts():
 
     conv3x3_same.launches.update(forward=0, input_grad=0, recompute=0)
     fused_dblock.launches = fused_dblock.recompute_launches = 0
+    fused_dblock.backwards.update(kernel=0, plain=0)
     gen_epilogue.launches.update(forward=0, backward=0, recompute=0)
 
 
@@ -2306,11 +2513,14 @@ def _graph_training(device):
     k2 = launches["conv3x3_forward"] + launches["conv3x3_input_grad"]
     if (per_step["graph"] != per_step["eager"] or k2 != GRAPH_K2_PER_STEP
             or launches["dblock"] != GRAPH_K3_PER_STEP
-            or any(launches[k] != n for k, n in K4_PER_STEP.items())):
+            or any(launches[k] != n for k, n in K4_PER_STEP.items())
+            or any(launches[k] != n
+                   for k, n in K3_BACKWARD_PER_STEP.items())):
         raise AssertionError(f"kernel launches a step: {per_step}")
     out["launches_per_step"] = launches
     want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP,
-            "gen_epilogue": K4_TRACED_PER_STEP}
+            "gen_epilogue": K4_TRACED_PER_STEP,
+            "dblock_grad": K3_GRAD_TRACED_PER_STEP}
     for kind in ("eager", "graph"):
         ms = times[kind]["ms"]
         out[kind] = {
@@ -2614,7 +2824,7 @@ def main() -> int:
             entry["dynamic_smem_bytes"] = \
                 lib_of["conv3x3"].conv3x3_nhwc_bf16_smem_bytes(n)
     for entry in resources["dblock"]:
-        if entry["function"] == "dblock_nhwc_bf16_wgmma":
+        if entry["function"].startswith("dblock_nhwc_bf16_wgmma"):
             entry["dynamic_smem_bytes"] = \
                 lib_of["dblock"].dblock_nhwc_bf16_smem_bytes()
     k1_span_max = _device_taps(config.audio, device)[3]
@@ -2662,6 +2872,24 @@ def main() -> int:
           f"and 14 backwards: kernel {k4_step['ms']:.4f} ms (graph "
           f"{k4_step['graph_ms']:.4f} ms), plain {k4_step['plain_ms']:.4f} "
           f"ms, bound {k4_step['bound_ms']:.4f} ms (bytes) ({card})")
+
+    t = time.perf_counter()
+    k3b = check_dblock_backward(
+        device, [e for e in resources["dblock"]
+                 if e["function"].startswith("dblock_nhwc_bf16")]
+        + resources["dblock_grad"])
+    k3b_bf16 = k3b["bfloat16"]
+    phase("K3 backward vs plain", t, f"bf16 z1 ties "
+          f"{k3b_bf16['z1_tie_share']:.2e}, kernel route vs its plain "
+          f"version {k3b_bf16['grad']:.3e} (f32 "
+          f"{k3b['float32']['grad']:.3e}); a call: saving forward +"
+          f"{k3b_bf16['forward_saving_extra']['graph_ms']:.4f} ms, spread "
+          f"{k3b_bf16['spread']['graph_ms']:.4f} ms (bound "
+          f"{k3b_bf16['spread']['bound_ms']:.4f}), mask "
+          f"{k3b_bf16['mask']['graph_ms']:.4f} ms (bound "
+          f"{k3b_bf16['mask']['bound_ms']:.4f}), backward "
+          f"{k3b_bf16['backward']['graph_ms']:.4f} ms against the plain "
+          f"{k3b_bf16['backward_plain']['graph_ms']:.4f} ms ({card})")
 
     t = time.perf_counter()
     generator, step, stage = load_ema_generator(
@@ -2934,6 +3162,14 @@ def main() -> int:
         "shape": k3["shape"],
         **{k: k3[k] for k in TIMES},
         "resources": resources["dblock"],
+        "backward_launches": {k: train["launches"][k]
+                              for k in K3_BACKWARD_PER_STEP},
+        "backward_graph_launches_per_replay": {
+            k: tr["launches_per_step"][k] for k in K3_BACKWARD_PER_STEP},
+        "backward": {k: k3b["bfloat16"][k] for k in (
+            "forward_saving_extra", "spread", "mask", "backward",
+            "backward_plain", "step_4_calls")},
+        "backward_resources": resources["dblock_grad"],
     }, {
         "name": "gen_epilogue",
         "route": "cuda",

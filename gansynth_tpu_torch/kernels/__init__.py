@@ -49,12 +49,16 @@ def _counted():
 def launch_counts() -> Dict[str, int]:
     """Every kernel wrapper's launch counter, by name: ``conv3x3_forward``,
     ``conv3x3_input_grad``, ``conv3x3_recompute``, ``dblock``,
-    ``dblock_recompute``, ``synthesis_spectrum``, ``gen_epilogue_forward``,
+    ``dblock_recompute``, ``dblock_backward`` (K3's backwards through its
+    kernels), ``dblock_backward_plain`` (through the plain adjoints, on a
+    card), ``synthesis_spectrum``, ``gen_epilogue_forward``,
     ``gen_epilogue_backward``, ``gen_epilogue_recompute``."""
     conv, dblock, synthesis, epilogue = _counted()
     return {**{f"conv3x3_{k}": v for k, v in conv.launches.items()},
             "dblock": dblock.launches,
             "dblock_recompute": dblock.recompute_launches,
+            "dblock_backward": dblock.backwards["kernel"],
+            "dblock_backward_plain": dblock.backwards["plain"],
             "synthesis_spectrum": synthesis.launches,
             **{f"gen_epilogue_{k}": v for k, v in epilogue.launches.items()}}
 
@@ -71,6 +75,10 @@ def add_launch_counts(delta: Dict[str, int]) -> None:
             dblock.launches += v
         elif k == "dblock_recompute":
             dblock.recompute_launches += v
+        elif k == "dblock_backward":
+            dblock.backwards["kernel"] += v
+        elif k == "dblock_backward_plain":
+            dblock.backwards["plain"] += v
         elif k == "synthesis_spectrum":
             synthesis.launches += v
         else:

@@ -62,6 +62,24 @@
 //    conv0, and one pooled pixel (its four conv1 pixels) and 8 channels in
 //    conv1, and pools in registers. 125,952 bytes.
 //
+// What the backward needs (csrc/dblock_grad.cu): given a0 and mask
+// pointers, the kernel's second instance (template argument SAVE = 1; the
+// forward without them is the first, unchanged) also writes
+//  - a0 [B, H, W, 64] in x's type, each tile its interior pixels (conv1's
+//    tile, without the halo): in bf16 copied 16 bytes a thread from the
+//    swizzled a0 tile once both consumers have stored it, in f32 from
+//    conv0's epilogue;
+//  - the sign of z1 = conv1 + b1 (the value conv1's lrelu tests, f32), one
+//    bit an element: mask [B, H, W, dblock_mask::pixel_bytes(C1)] bytes,
+//    in the layout csrc/dblock_mask.cuh defines, the order of the wgmma
+//    accumulators' lanes. In bf16 lane t of a quad holds the 16 channels
+//    of its column's halfword t in both of its rows, so it stores its two
+//    halfwords as they are, with no shuffle (a byte-per-8-channels order
+//    needed eight shuffles a row pair and took 0.06 ms more a launch); the
+//    f32 kernel ORs its 8 lanes' bits together with shuffles.
+//  The mask of z0 is not written: with a slope above 0, a0 >= 0 exactly
+//  where z0 >= 0. y is computed by the same arithmetic in both instances.
+//
 // Plain C interface for ctypes: raw pointers, sizes, the cudaStream_t as
 // void*, and the cudaError_t of the launch as the return value.
 
@@ -70,6 +88,7 @@
 
 #include <cstdint>
 
+#include "dblock_mask.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -123,11 +142,13 @@ __device__ __forceinline__ void load_weights(float* ws, const float* w,
   }
 }
 
+template <int SAVE>
 __global__ void __launch_bounds__(kThreads)
 dblock_nhwc_f32_fma(const float* __restrict__ x, const float* __restrict__ k0,
                     const float* __restrict__ b0,
                     const float* __restrict__ k1,
                     const float* __restrict__ b1, float* __restrict__ y,
+                    float* __restrict__ a0_out, uint8_t* __restrict__ mask,
                     int height, int width, int c1, float slope) {
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;                     // [CIN][XH][XW]
@@ -202,12 +223,21 @@ dblock_nhwc_f32_fma(const float* __restrict__ x, const float* __restrict__ k0,
     const int gy = oy0 - 1 + p / AW;
     const int gx = ox0 - 1 + p % AW;
     const bool inside = gy >= 0 && gy < height && gx >= 0 && gx < width;
+    float a[CX];
 #pragma unroll
     for (int i = 0; i < CX; ++i) {
       const int co = cg * CX + i;
       // Zero outside the image: conv1's SAME padding.
-      a0s[co * kA0Pixels + p] =
-          inside ? lrelu(acc0[j][i] + b0[co], slope) : 0.0f;
+      a[i] = inside ? lrelu(acc0[j][i] + b0[co], slope) : 0.0f;
+      a0s[co * kA0Pixels + p] = a[i];
+    }
+    if (SAVE && inside && p / AW >= 1 && p / AW <= OH && p % AW >= 1 &&
+        p % AW <= OW) {
+      float4* out = reinterpret_cast<float4*>(
+          a0_out + (image + static_cast<size_t>(gy) * width + gx) * CIN +
+          cg * CX);
+      out[0] = make_float4(a[0], a[1], a[2], a[3]);
+      out[1] = make_float4(a[4], a[5], a[6], a[7]);
     }
   }
 
@@ -252,6 +282,11 @@ dblock_nhwc_f32_fma(const float* __restrict__ x, const float* __restrict__ k0,
         }
       }
     }
+    // z1 >= 0 bits of the four pixels in the mask's order (channel
+    // 8 cg + i of the pass is dblock_mask::bit(cg, i / 2, i % 2), which
+    // lies in the pass's 32-bit word i / 4), ORed over the pixel group's
+    // 8 lanes (cg) and stored by lane cg = 0.
+    uint32_t bits[4][2] = {};
     if (store) {
       float* out = y + ((static_cast<size_t>(b) * (height / 2) + py) *
                             (width / 2) + px) * c1;
@@ -262,8 +297,36 @@ dblock_nhwc_f32_fma(const float* __restrict__ x, const float* __restrict__ k0,
         const float bias = b1[co];
         float s = 0.0f;
 #pragma unroll
-        for (int q = 0; q < 4; ++q) s += lrelu(acc1[q][i] + bias, slope);
+        for (int q = 0; q < 4; ++q) {
+          const float z = acc1[q][i] + bias;
+          s += lrelu(z, slope);
+          if (SAVE) {
+            bits[q][i / 4] |= static_cast<uint32_t>(z >= 0.0f)
+                              << (dblock_mask::bit(cg, i / 2, i % 2) % 32);
+          }
+        }
         out[co] = 0.25f * s;
+      }
+    }
+    if (SAVE) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+#pragma unroll
+          for (int o = 1; o < TC / CX; o <<= 1) {
+            bits[q][k] |= __shfl_xor_sync(0xffffffffu, bits[q][k], o);
+          }
+        }
+        if (store && cg == 0) {
+          const size_t pixel =
+              (static_cast<size_t>(b) * height + 2 * py + (q >> 1)) * width +
+              2 * px + (q & 1);
+          *reinterpret_cast<uint2*>(
+              mask + pixel * dblock_mask::pixel_bytes(c1) +
+              dblock_mask::halfword_byte(co0 / TC, 0)) =
+              make_uint2(bits[q][0], bits[q][1]);
+        }
       }
     }
   }
@@ -391,13 +454,39 @@ __device__ __forceinline__ void store_a0(const float (&acc)[G][32], int group0,
   }
 }
 
+// The tile's interior a0 (conv1's 16 x 32 pixels, without the halo) from
+// the swizzled a0 tile to a0_out [B, H, W, 64], 16 bytes a thread at a
+// time: eight consecutive threads write one pixel's 128 bytes. `tid`
+// counts the 256 consumer threads.
+__device__ __forceinline__ void save_a0(const unsigned char* a0s,
+                                        __nv_bfloat16* __restrict__ a0_out,
+                                        int b, int oy0, int ox0, int height,
+                                        int width, int tid) {
+  for (int e = tid; e < W_OH * W_OW * 8; e += 256) {
+    const int pix = e / 8;
+    const int chunk = e % 8;
+    const int gy = oy0 + pix / W_OW;
+    const int gx = ox0 + pix % W_OW;
+    if (gy < height && gx < width) {
+      const int p = (pix / W_OW + 1) * W_AW + pix % W_OW + 1;
+      *reinterpret_cast<uint4*>(
+          a0_out + ((static_cast<size_t>(b) * height + gy) * width + gx) *
+                       CIN + 8 * chunk) =
+          *reinterpret_cast<const uint4*>(a0s + hopper::sw128_offset(p, chunk));
+    }
+  }
+}
+
+template <int SAVE>
 __global__ void __launch_bounds__(W_THREADS, 1)
 dblock_nhwc_bf16_wgmma(const __grid_constant__ CUtensorMap x_map,
                        const __grid_constant__ CUtensorMap k0_map,
                        const __grid_constant__ CUtensorMap k1_map,
                        const __nv_bfloat16* __restrict__ b0,
                        const __nv_bfloat16* __restrict__ b1,
-                       __nv_bfloat16* __restrict__ y, int batch, int height,
+                       __nv_bfloat16* __restrict__ y,
+                       __nv_bfloat16* __restrict__ a0_out,
+                       uint8_t* __restrict__ mask, int batch, int height,
                        int width, int c1, float slope) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* xs = hopper::align1024(smem_raw);   // [20 x 36][64], sw128
@@ -532,6 +621,9 @@ dblock_nhwc_bf16_wgmma(const __grid_constant__ CUtensorMap x_map,
                       width, slope, warp, lane);
     }
     hopper::named_barrier(1, 256);   // a0 is complete (both consumers)
+    if (SAVE) {
+      save_a0(a0s, a0_out, b, oy0, ox0, height, width, threadIdx.x - 128);
+    }
 
     // ---- conv1 + b1 + lrelu + 2x2 pool, one 64-channel pass at a time
     for (int pass = 0; pass < passes; ++pass) {
@@ -545,16 +637,34 @@ dblock_nhwc_bf16_wgmma(const __grid_constant__ CUtensorMap x_map,
         __nv_bfloat16* out =
             y + ((static_cast<size_t>(b) * (height / 2) + py) * (width / 2) +
                  px) * c1;
+        // z1 >= 0 bits of this lane's 16 channels 8 j + 2 t + e in rows
+        // h = 0, 1: the mask's halfword t of the pass, channel 8 j + 2 t + e
+        // at bit dblock_mask::bit(j, 0, e) of bits[h].
+        uint32_t bits[2] = {0u, 0u};
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int co = 64 * pass + 8 * j + 2 * t;
-          const float bias0 = co < c1 ? __bfloat162float(b1[co]) : 0.0f;
+          // Channels past C1 (zero weights) are never stored; the
+          // negative bias leaves their bits 0.
+          const float bias0 = co < c1 ? __bfloat162float(b1[co]) : -1.0f;
           const float bias1 =
-              co + 1 < c1 ? __bfloat162float(b1[co + 1]) : 0.0f;
-          float v0 = lrelu(acc[q][4 * j] + bias0, slope) +
-                     lrelu(acc[q][4 * j + 2] + bias0, slope);
-          float v1 = lrelu(acc[q][4 * j + 1] + bias1, slope) +
-                     lrelu(acc[q][4 * j + 3] + bias1, slope);
+              co + 1 < c1 ? __bfloat162float(b1[co + 1]) : -1.0f;
+          const float z00 = acc[q][4 * j] + bias0;
+          const float z01 = acc[q][4 * j + 1] + bias1;
+          const float z10 = acc[q][4 * j + 2] + bias0;
+          const float z11 = acc[q][4 * j + 3] + bias1;
+          if (SAVE) {
+            bits[0] |= (static_cast<uint32_t>(z00 >= 0.0f)
+                        << dblock_mask::bit(j, 0, 0)) |
+                       (static_cast<uint32_t>(z01 >= 0.0f)
+                        << dblock_mask::bit(j, 0, 1));
+            bits[1] |= (static_cast<uint32_t>(z10 >= 0.0f)
+                        << dblock_mask::bit(j, 0, 0)) |
+                       (static_cast<uint32_t>(z11 >= 0.0f)
+                        << dblock_mask::bit(j, 0, 1));
+          }
+          float v0 = lrelu(z00, slope) + lrelu(z10, slope);
+          float v1 = lrelu(z01, slope) + lrelu(z11, slope);
           v0 += __shfl_xor_sync(0xffffffffu, v0, 4);
           v1 += __shfl_xor_sync(0xffffffffu, v1, 4);
           if (store && co < c1) {
@@ -563,6 +673,21 @@ dblock_nhwc_bf16_wgmma(const __grid_constant__ CUtensorMap x_map,
                   __floats2bfloat162_rn(0.25f * v0, 0.25f * v1);
             } else {
               out[co] = __float2bfloat16_rn(0.25f * v0);
+            }
+          }
+        }
+        if (SAVE) {
+          const int gx = ox0 + warp * 8 + g;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int gy = oy0 + 2 * (W_G1 * c + q) + h;
+            if (gy < height && gx < width) {
+              *reinterpret_cast<uint16_t*>(
+                  mask +
+                  ((static_cast<size_t>(b) * height + gy) * width + gx) *
+                      dblock_mask::pixel_bytes(c1) +
+                  dblock_mask::halfword_byte(pass, t)) =
+                  static_cast<uint16_t>(bits[h]);
             }
           }
         }
@@ -582,33 +707,41 @@ extern "C" {
 
 // x [batch, height, width, 64], k0 [3, 3, 64, 64], b0 [64],
 // k1 [3, 3, c1, 64] (both HWOI), b1 [c1], y [batch, height / 2, width / 2,
-// c1]; all contiguous, all f32 (or all bf16 for the _bf16 entry).
+// c1]; all contiguous, all f32 (or all bf16 for the _bf16 entry). a0
+// [batch, height, width, 64] in x's type and mask [batch, height, width,
+// 8 * ceil(c1 / 64)] bytes, both contiguous and 16-byte aligned, are
+// written when both are given (what the backward needs); both null, the
+// forward writes y alone.
 int dblock_nhwc_f32(const void* x, const void* k0, const void* b0,
-                    const void* k1, const void* b1, void* y, int batch,
-                    int height, int width, int c1, float slope, void* stream) {
-  if (bad_sizes(batch, height, width, c1)) {
+                    const void* k1, const void* b1, void* y, void* a0,
+                    void* mask, int batch, int height, int width, int c1,
+                    float slope, void* stream) {
+  if (bad_sizes(batch, height, width, c1) ||
+      (a0 == nullptr) != (mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const auto kernel =
+      a0 != nullptr ? dblock_nhwc_f32_fma<1> : dblock_nhwc_f32_fma<0>;
   cudaError_t err = cudaFuncSetAttribute(
-      dblock_nhwc_f32_fma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((width / 2 + PW - 1) / PW, (height / 2 + PH - 1) / PH,
                   batch);
-  dblock_nhwc_f32_fma<<<grid, kThreads, kSmemBytes,
-                        static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(k0),
       static_cast<const float*>(b0), static_cast<const float*>(k1),
-      static_cast<const float*>(b1), static_cast<float*>(y), height, width,
+      static_cast<const float*>(b1), static_cast<float*>(y),
+      static_cast<float*>(a0), static_cast<uint8_t*>(mask), height, width,
       c1, slope);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dblock_nhwc_bf16(const void* x, const void* k0, const void* b0,
-                     const void* k1, const void* b1, void* y, int batch,
-                     int height, int width, int c1, float slope,
-                     void* stream) {
-  if (bad_sizes(batch, height, width, c1)) {
+                     const void* k1, const void* b1, void* y, void* a0,
+                     void* mask, int batch, int height, int width, int c1,
+                     float slope, void* stream) {
+  if (bad_sizes(batch, height, width, c1) ||
+      (a0 == nullptr) != (mask == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   CUtensorMap x_map, k0_map, k1_map;
@@ -629,9 +762,10 @@ int dblock_nhwc_bf16(const void* x, const void* k0, const void* b0,
   const cuuint64_t k1_strides[2] = {2ull * CIN, 2ull * CIN * c1};
   err = hopper::encode_bf16_sw128(&k1_map, k1, 3, k1_dims, k1_strides, w_box);
   if (err != 0) return err;
+  const auto kernel =
+      a0 != nullptr ? dblock_nhwc_bf16_wgmma<1> : dblock_nhwc_bf16_wgmma<0>;
   cudaError_t e = cudaFuncSetAttribute(
-      dblock_nhwc_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      W_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const long tiles = static_cast<long>((width + W_OW - 1) / W_OW) *
                      ((height + W_OH - 1) / W_OH) * batch;
@@ -640,11 +774,11 @@ int dblock_nhwc_bf16(const void* x, const void* k0, const void* b0,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  dblock_nhwc_bf16_wgmma<<<grid, W_THREADS, W_SMEM,
-                           static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, W_THREADS, W_SMEM, static_cast<cudaStream_t>(stream)>>>(
       x_map, k0_map, k1_map, static_cast<const __nv_bfloat16*>(b0),
       static_cast<const __nv_bfloat16*>(b1), static_cast<__nv_bfloat16*>(y),
-      batch, height, width, c1, slope);
+      static_cast<__nv_bfloat16*>(a0), static_cast<uint8_t*>(mask), batch,
+      height, width, c1, slope);
   return static_cast<int>(cudaGetLastError());
 }
 

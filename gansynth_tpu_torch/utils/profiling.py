@@ -216,12 +216,15 @@ def graph_vs_eager(config, generator, stage: int, batch: int,
 
 
 # The port's kernels by the names of their device functions in
-# kernels/csrc (each type and template instance): K1, K2, K3, K4 (K4's
-# forward, backward and the backward's bias sum: a backward that takes
-# the bias's gradient runs two of them).
+# kernels/csrc (each type and template instance): K1, K2, K3's forward,
+# K4 (K4's forward, backward and the backward's bias sum: a backward that
+# takes the bias's gradient runs two of them), and K3's backward kernels
+# (the spread, the mask kernel and their bias sums: up to four a
+# backward), apart from K3's forward, whose name its roofline counts.
 PORT_KERNELS = {"synthesis_spectrum": "synthesis_spectrum_gather",
                 "conv3x3": "conv3x3_nhwc_", "dblock": "dblock_nhwc_",
-                "gen_epilogue": "gen_epilogue_"}
+                "gen_epilogue": "gen_epilogue_",
+                "dblock_grad": "dblock_grad_"}
 
 
 def port_kernel(name: str):

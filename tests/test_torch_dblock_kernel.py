@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import gansynth_tpu.kernels.pallas_dblock as pd
 from gansynth_tpu.models.discriminator import DiscriminatorBlock as JBlock
@@ -173,3 +174,174 @@ def test_wrapper_checks_shapes_and_counts_only_launches():
     t = _torch(_inputs(1, 8, 16))
     with pytest.raises(ValueError, match="do not fit"):
         K3.fused_dblock(t[0][..., :32], *t[1:], 0.2)
+
+
+# The card's routing of K3's backward, on the CPU: ``_on_card`` answers
+# True, the forward's kernel is the chain's saving version and the
+# backward's kernels are their plain versions, so that the Function takes
+# the route it takes on a card.
+def _install_kernel_route(monkeypatch):
+    calls = {"spread": 0, "mask": 0}
+
+    def launch(x, k0, b0, k1, b1, slope, save):
+        if save:
+            return K3.dblock_saving_plain(x, k0, b0, k1, b1, slope)
+        return K3.dblock_plain(x, k0, b0, k1, b1, slope), None, None
+
+    def spread(g, mask, slope, bias):
+        calls["spread"] += 1
+        return K3.spread_plain(g, mask, slope)
+
+    def mask_grad(a0, g_a0, slope, bias):
+        calls["mask"] += 1
+        return K3.mask_grad_plain(a0, g_a0, slope)
+
+    monkeypatch.setattr(K3, "_on_card", lambda x: True)
+    monkeypatch.setattr(K3, "_launch", launch)
+    monkeypatch.setattr(K3, "_spread", spread)
+    monkeypatch.setattr(K3, "_mask_grad", mask_grad)
+    return calls
+
+
+@pytest.fixture
+def kernel_route(monkeypatch):
+    return _install_kernel_route(monkeypatch)
+
+
+def _critic_and_images(seed=6, remat=False):
+    """A narrow critic whose stage-3 block (64 channels at 16 x 128) takes
+    K3, and a real and a fake image at that stage."""
+    from gansynth_tpu_torch.utils.config import ModelConfig
+
+    cfg = ModelConfig(fmap_base=512, fmap_max=128, fmap_min=8,
+                      dblock_kernel="pallas", remat=remat)
+    critic = tdisc.Discriminator(cfg, generator=torch.Generator()
+                                 .manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    real, fake = (torch.from_numpy(rng.standard_normal((2, 16, 128, 2))
+                                   .astype(np.float32)) for _ in range(2))
+    return critic, real, fake
+
+
+def _critic_loss(critic, real, fake):
+    """WGAN-GP's critic loss as the training step takes it: the real and
+    fake scores, and the penalty's gradient at interpolates
+    (``create_graph=True``)."""
+    from gansynth_tpu_torch.train import losses
+
+    fn = lambda image: critic(image, 3)   # noqa: E731
+    u = torch.full((2, 1, 1, 1), 0.375)
+    return (losses.wgan_critic_loss(fn(real)[0], fn(fake)[0])
+            + 10.0 * losses.gradient_penalty(fn, real, fake, u))
+
+
+def test_kernel_route_under_backward_never_under_create_graph(kernel_route):
+    """The penalty's ``create_graph`` call takes the plain adjoints; the
+    loss's ``backward()`` takes the kernels at each of its three K3 nodes
+    (real, fake, and the interpolates' forward), as a critic update does
+    on a card; the counters say so."""
+    from gansynth_tpu_torch.train import losses
+
+    critic, real, fake = _critic_and_images()
+    before = dict(K3.fused_dblock.backwards)
+    x_hat = losses.interpolate(real, fake, torch.full((2, 1, 1, 1), 0.375))
+    x_hat.requires_grad_()
+    torch.autograd.grad(critic(x_hat, 3)[0].sum(), x_hat, create_graph=True)
+    assert kernel_route == {"spread": 0, "mask": 0}
+    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
+                                         "plain": before["plain"] + 1}
+    _critic_loss(critic, real, fake).backward()
+    assert kernel_route == {"spread": 3, "mask": 3}
+    assert K3.fused_dblock.backwards == {"kernel": before["kernel"] + 3,
+                                         "plain": before["plain"] + 2}
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_critic_gradients_through_the_kernel_route(monkeypatch, remat):
+    """The critic's gradients (WGAN-GP's loss, the penalty's second order
+    included) through the kernel route equal the plain route's: the
+    route's a0 and masks are the chain's, and its convs the same. With
+    ``remat`` each block runs under non-reentrant checkpointing, whose
+    saved tensors a backward may unpack only once."""
+    critic, real, fake = _critic_and_images(remat=remat)
+    _critic_loss(critic, real, fake).backward()
+    want = {k: p.grad.clone() for k, p in critic.named_parameters()
+            if p.grad is not None}
+    assert "blocks.3.conv0.weight" in want
+    critic.zero_grad(set_to_none=True)
+    calls = _install_kernel_route(monkeypatch)
+    _critic_loss(critic, real, fake).backward()
+    assert calls == {"spread": 3, "mask": 3}
+    got = {k: p.grad for k, p in critic.named_parameters()
+           if p.grad is not None}
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6,
+                                   msg=k)
+
+
+def test_saving_forward_and_the_plain_kernels():
+    """The chain's saving forward gives dblock_plain's y to the bit, and a0
+    and the mask in the kernel's layout (8 bytes a 64-channel pass:
+    channel 8 j + 2 t + e of a pass is bit 2 j + e of its halfword t);
+    the spread's and the mask kernel's plain versions give the plain
+    route's g_z1 and g_z0."""
+    x, k0, b0, k1, b1 = _torch(_inputs(1, 8, 16, c1=72, seed=7))
+    y, a0, mask = K3.dblock_saving_plain(x, k0, b0, k1, b1, 0.2)
+    assert torch.equal(y, K3.dblock_plain(x, k0, b0, k1, b1, 0.2))
+    assert mask.dtype == torch.uint8 and mask.shape == (1, 8, 16, 16)
+    z1 = F.conv2d(a0.permute(0, 3, 1, 2), k1, padding=1) + b1[:, None, None]
+    bits = (z1 >= 0).permute(0, 2, 3, 1)
+    assert torch.equal(K3.unpack_mask(mask, 72), bits)
+    assert not K3.unpack_mask(mask, 128)[..., 72:].any()   # past C1: 0
+    for channel, byte, bit in ((10, 2, 2), (63, 7, 7), (64, 8, 0),
+                               (71, 14, 1)):
+        one = torch.zeros(1, 1, 1, 72, dtype=torch.bool)
+        one[..., channel] = True
+        want = [0] * 16
+        want[byte] = 1 << bit
+        assert K3.pack_mask(one)[0, 0, 0].tolist() == want
+    g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        y.shape).astype(np.float32))
+    g_z1, db1 = K3.spread_plain(g, mask, 0.2)
+    g_a1 = (g * 0.25).repeat_interleave(2, 1).repeat_interleave(2, 2)
+    assert torch.equal(g_z1, torch.where(bits, g_a1, 0.2 * g_a1))
+    assert torch.equal(db1, g_z1.sum((0, 1, 2)))
+    g_z0, db0 = K3.mask_grad_plain(a0, g_z1[..., :64], 0.2)
+    assert torch.equal(g_z0, torch.where(a0 >= 0, g_z1[..., :64],
+                                         0.2 * g_z1[..., :64]))
+    assert torch.equal(db0, g_z0.sum((0, 1, 2)))
+
+
+def test_a_width_the_kernels_lack_keeps_the_plain_backward(kernel_route,
+                                                           monkeypatch):
+    """A C1 that is no multiple of 8 (``cli train --fmap-max 100`` gives
+    the stage-6 block 100) passes K3's gate; its forward keeps nothing and
+    its backward under grad mode off takes the plain adjoints, with the
+    plain route's gradients; a width the kernels take keeps a0 and the
+    mask."""
+    saves = []
+    launch = K3._launch
+
+    def recording(*args):
+        saves.append(args[-1])
+        return launch(*args)
+
+    monkeypatch.setattr(K3, "_launch", recording)
+    assert K3.dblock_eligible((1, 8, 16, 64), 64, 100)
+    assert not K3.keeps_for_backward(100) and K3.keeps_for_backward(72)
+    args = _torch(_inputs(1, 8, 16, c1=100, seed=9), grad=True)
+    g = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (1, 4, 8, 100)).astype(np.float32))
+    before = dict(K3.fused_dblock.backwards)
+    got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
+    assert saves == [False]
+    assert kernel_route == {"spread": 0, "mask": 0}
+    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
+                                         "plain": before["plain"] + 1}
+    want = torch.autograd.grad(K3.dblock_plain(*args, 0.2), args, g)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    K3.fused_dblock(*_torch(_inputs(1, 8, 16, c1=72, seed=9), grad=True),
+                    0.2)
+    assert saves == [False, True]

@@ -34,6 +34,7 @@ from gansynth_tpu_torch.kernels import dblock as K3
 from gansynth_tpu_torch.kernels import synthesis as K
 from gansynth_tpu_torch.ops import spectral as tspec
 from gansynth_tpu_torch.utils.config import AudioConfig
+from gansynth_tpu_torch.utils.device import slope_in
 
 CFG = AudioConfig()
 
@@ -244,7 +245,15 @@ def test_dblock_matches_plain(cuda_device, dtype, shape):
     """Forward and first order against the literal chain, at a tile-aligned
     shape and two ragged ones: (1, 12, 20) is smaller than one bf16 tile
     (16 x 32 conv1 outputs), (1, 20, 40) spills into a second tile in
-    both directions; C1 = 72 leaves the second 64-channel pass partial."""
+    both directions; C1 = 72 leaves the second 64-channel pass partial.
+    The first order (grad mode off) runs from what the forward kept. In
+    float32 it is held to autograd of the chain. In bf16 it differentiates
+    the kernel's own forward, whose float32 z1 differs in sign from the
+    chain's rounded one at ties (bounded in
+    ``test_dblock_saving_forward_keeps_a0_and_mask``), where one element's
+    gradient moves by (1 - slope) of itself; so both bf16 routes, the
+    kernel's and autograd of the bf16 chain, are held to the chain's
+    gradients in float64 (:func:`_no_further_from_truth`)."""
     b, h, w, c1 = shape
     args = _dblock_inputs(cuda_device, b, h, w, c1, dtype)
     for a in args:
@@ -258,10 +267,48 @@ def test_dblock_matches_plain(cuda_device, dtype, shape):
     y_p = K3.dblock_plain(*args, 0.2)
     g_p = torch.autograd.grad((y_p * r).sum(), args)
     _close(y, y_p, 1e-5 if dtype == torch.float32 else 3e-2)
-    # explicit adjoints against autograd of the chain: the same cuDNN
-    # convs, rounded at other places in bf16
-    for a, b_ in zip(g, g_p):
-        _close(a, b_, 1e-4 if dtype == torch.float32 else 3e-2)
+    if dtype == torch.float32:
+        # explicit adjoints against autograd of the chain: the same cuDNN
+        # convs
+        for a, b_ in zip(g, g_p):
+            _close(a, b_, 1e-4)
+    else:
+        _no_further_from_truth(g, g_p, _float64_grads(args, r))
+
+
+# K3's kernel route's bf16 gradients may lie at most ROUTE_MARGIN times
+# as far from the float64 gradients as the plain bf16 route's, by
+# relative L2 error. Both routes round g_z1 and g_z0 alike, which
+# dominates the bias gradients' error, so their ratio lies near 1; the
+# 10 % takes the ties where the two routes' masks differ, while a wrong
+# mask or a0 moves an element by (1 - slope) of its gradient.
+ROUTE_MARGIN = 1.1
+
+
+def _float64_grads(args, g, slope=0.2):
+    """The chain's gradients for the gradient ``g`` of y, in float64 at
+    the values the bf16 routes compute with: x and g as they are, the
+    weights and biases rounded to x's type, the slope in x's type. Nothing
+    of the kernel under test."""
+    dt = args[0].dtype
+    xs = [a.detach().to(dt).double().requires_grad_() for a in args]
+    y = K3.dblock_plain(*xs, slope_in(dt, slope))
+    return torch.autograd.grad(y, xs, g.double())
+
+
+def _rel_l2(got, want):
+    return float((got.double() - want).norm() / want.norm())
+
+
+def _no_further_from_truth(got, plain, truth):
+    """Each of the kernel route's five gradients (dx, dk0, db0, dk1, db1)
+    has a relative L2 error against the float64 gradients of at most
+    ROUTE_MARGIN times the plain route's."""
+    for i, (a, p, t) in enumerate(zip(got, plain, truth)):
+        err, err_plain = _rel_l2(a, t), _rel_l2(p, t)
+        assert err <= ROUTE_MARGIN * err_plain, (
+            f"input {i}: relative L2 error {err:.4e} > {ROUTE_MARGIN} * "
+            f"the plain route's {err_plain:.4e}")
 
 
 @pytest.mark.gpu
@@ -280,6 +327,202 @@ def test_dblock_second_order(cuda_device, dtype):
 
     _close(gp(K3.fused_dblock), gp(K3.dblock_plain),
            1e-4 if dtype == torch.float32 else 3e-2)
+
+
+# K3's backward from what its forward keeps: the flagship's shape and a
+# ragged one (20 x 40 spills into a second bf16 tile in both directions,
+# C1 = 72 leaves conv1's second pass partial).
+K3_SAVE_SHAPES = [(8, 128, 1024, 128), (1, 20, 40, 72)]
+_FWD_BAR = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+_GRAD_BAR = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+_TIES = {torch.float32: 1e-5, torch.bfloat16: 2e-3}   # bf16 reads 9e-4
+
+
+def _kept(device, shape, dtype):
+    """x, k0, b0, k1, b1, the saving forward's (y, a0, mask), and a pooled
+    gradient g."""
+    b, h, w, c1 = shape
+    args = _dblock_inputs(device, b, h, w, c1, dtype)
+    kept = K3._launch(*args, 0.2, True)
+    g = _rand((b, h // 2, w // 2, c1), device, 21, dtype)
+    return args, kept, g
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SAVE_SHAPES)
+def test_dblock_saving_forward_keeps_a0_and_mask(cuda_device, dtype, shape):
+    """The saving instance's y is the plain instance's to the bit; its a0
+    is the chain's at the forward's bar, and its z1 >= 0 bits the chain's
+    except at ties: where they differ, the chain's |z1| lies within the
+    forward's bar of z1's scale (the kernel tests its float32 sum plus
+    b1, the chain its own sum in its type), on at most 1e-5 of the
+    elements in float32, 2e-3 in bf16 (where the chain rounds the conv
+    and the bias add, and a0 by one ulp here and there)."""
+    args, (y, a0, mask), _ = _kept(cuda_device, shape, dtype)
+    y_plain, none_a0, none_mask = K3._launch(*args, 0.2, False)
+    torch.cuda.synchronize()
+    assert none_a0 is None and none_mask is None
+    assert torch.equal(y, y_plain)
+    _, a0_p, _ = K3.dblock_saving_plain(*args, 0.2)
+    _close(a0, a0_p, _FWD_BAR[dtype])
+    c1 = shape[-1]
+    assert mask.shape == (*shape[:3], K3.mask_bytes(c1))
+    x, k0, b0, k1, b1 = args
+    z1 = (torch.nn.functional.conv2d(a0_p.permute(0, 3, 1, 2), k1.to(dtype),
+                                     padding=1)
+          + b1.to(dtype)[:, None, None]).permute(0, 2, 3, 1).float()
+    assert not K3.unpack_mask(mask, 8 * mask.shape[-1])[..., c1:].any()
+    ties = K3.unpack_mask(mask, c1) != (z1 >= 0)
+    assert int(ties.sum()) <= _TIES[dtype] * z1.numel()
+    if bool(ties.any()):
+        scale = max(1.0, float(z1.abs().max()))
+        assert float(z1[ties].abs().max()) <= _FWD_BAR[dtype] * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SAVE_SHAPES)
+def test_dblock_backward_kernels_equal_their_plain_formulas(cuda_device,
+                                                            dtype, shape):
+    """Given the kept a0 and mask, the spread and mask kernels give the
+    plain formulas' g_z1 and g_z0 to the bit; their bias gradients
+    (float32 sums in another order, rounded to the type) within 1 ulp
+    and 1e-5 of the sum of |g_z|."""
+    _, (_, a0, mask), g = _kept(cuda_device, shape, dtype)
+    g_a0 = _rand(a0.shape, cuda_device, 22, dtype)
+    for got, want in ((K3._spread(g, mask, 0.2, True),
+                       K3.spread_plain(g, mask, 0.2)),
+                      (K3._mask_grad(a0, g_a0, 0.2, True),
+                       K3.mask_grad_plain(a0, g_a0, 0.2))):
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert got[1].dtype == torch.float32
+        assert torch.equal(got[1].to(dtype).float(), got[1])
+        _within_ulps(got[1].to(dtype), want[1].to(dtype), 1,
+                     1e-5 * want[0].float().abs().sum((0, 1, 2)))
+    # without the bias gradient: the same g_z, no partials
+    g_z1, none = K3._spread(g, mask, 0.2, False)
+    assert none is None and torch.equal(g_z1, K3.spread_plain(g, mask)[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", K3_SAVE_SHAPES)
+def test_dblock_kernel_backward_matches_the_plain_adjoints(cuda_device,
+                                                           dtype, shape):
+    """A first-order backward (grad mode off) takes the kernels, once; dx,
+    dk0, db0, dk1 and db1 match ``dblock_backward_plain`` (the chain
+    recomputed) at the K3 card tests' bar in float32; in bf16 each lies
+    at most ROUTE_MARGIN times as far from the chain's float64 gradients
+    as the plain route's, as ``test_dblock_matches_plain`` holds them."""
+    b, h, w, c1 = shape
+    args = _dblock_inputs(cuda_device, b, h, w, c1, dtype)
+    for a in args:
+        a.requires_grad_()
+    g = _rand((b, h // 2, w // 2, c1), cuda_device, 21, dtype)
+    before = dict(K3.fused_dblock.backwards)
+    got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
+    torch.cuda.synchronize()
+    assert K3.fused_dblock.backwards == {"kernel": before["kernel"] + 1,
+                                         "plain": before["plain"]}
+    with torch.no_grad():
+        want = K3.dblock_backward_plain(*[a.detach() for a in args], g)
+    if dtype == torch.float32:
+        for a, b_ in zip(got, want):
+            _close(a, b_, _GRAD_BAR[torch.float32])
+    else:
+        _no_further_from_truth(got, want, _float64_grads(args, g))
+
+
+@pytest.mark.gpu
+def test_dblock_odd_width_takes_the_plain_backward(cuda_device):
+    """A C1 that is no multiple of 8 passes K3's gate; on the card its
+    forward is the kernel's and keeps nothing, and its first-order
+    backward takes ``dblock_backward_plain``, counted as plain."""
+    args = _dblock_inputs(cuda_device, 1, 20, 40, 100, torch.bfloat16)
+    for a in args:
+        a.requires_grad_()
+    g = _rand((1, 10, 20, 100), cuda_device, 21, torch.bfloat16)
+    before = dict(K3.fused_dblock.backwards)
+    launches = K3.fused_dblock.launches
+    got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
+    torch.cuda.synchronize()
+    assert K3.fused_dblock.launches == launches + 1
+    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
+                                         "plain": before["plain"] + 1}
+    with torch.no_grad():
+        want = K3.dblock_backward_plain(*[a.detach() for a in args], g)
+    for a, b_ in zip(got, want):
+        _close(a, b_, _GRAD_BAR[torch.bfloat16])
+
+
+@pytest.mark.gpu
+def test_dblock_backward_graph_replay_equals_eager(deterministic_cudnn):
+    """K3's kernel-path backward (its bias sums included) captured in a
+    CUDA graph gives the eager run's bits at every replay, at the
+    flagship's shape in bf16: no atomics in the kernels, cuDNN on its
+    deterministic algorithms."""
+    from gansynth_tpu_torch.utils import graphs
+
+    args, (_, a0, mask), g = _kept(deterministic_cudnn, K3_SAVE_SHAPES[0],
+                                   torch.bfloat16)
+
+    def run():
+        return K3.dblock_backward_saved(*args, a0, mask, g)
+
+    want = run()
+    graph = graphs.Graph(run, deterministic_cudnn)
+    for _ in range(3):
+        got = graph.replay()
+        torch.cuda.synchronize()
+        for a, b_ in zip(got, want):
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.gpu
+def test_a_step_takes_k3s_backward_by_route(cuda_device):
+    """A 3-step cached superstep at the flagship's widths (stage 6, batch
+    2, bf16): each step runs K3's forward 4 times (real, fake, the
+    interpolates, the generator update's fake) and its backward 5 times,
+    4 through the kernels and 1 (the penalty's ``create_graph`` call)
+    through the plain adjoints, eagerly and in each replay of the step's
+    graph, by the counters and by name in a profiler trace of the
+    replays: 4 spreads, 4 mask kernels and 8 bias sums a step (every
+    pass takes both biases' gradients)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import launch_counts
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+
+    config, state, waves, pitches = _flagship_width_state(cuda_device,
+                                                          False)
+    alphas = [1.0] * 3
+    keys = ("dblock", "dblock_backward", "dblock_backward_plain")
+    want = dict(zip(keys, (4, 4, 1)))
+    eager = make_cached_superstep(config, 6, 6, graphs=False)
+    before = launch_counts()
+    eager(copy.deepcopy(state), waves, pitches, alphas)
+    torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    graphed = make_cached_superstep(config, 6, 6)
+    graphed(state, waves, pitches, alphas)   # the capture
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(state, waves, pitches, alphas)
+        torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for part, n in (("dblock_nhwc_bf16_wgmma", 4),
+                    ("dblock_grad_spread_bf16", 4),
+                    ("dblock_grad_mask_bf16", 4),
+                    ("dblock_grad_bias_sum_bf16", 8)):
+        assert sum(part in name for name in names) == 3 * n, part
 
 
 @pytest.mark.gpu
@@ -902,7 +1145,6 @@ def test_gen_epilogue_matches_plain(cuda_device, dtype, shape):
     over the rows in another order). The plain version of the kernel's
     backward is held to the kernel the same way."""
     from gansynth_tpu_torch.kernels import gen_epilogue as K4
-    from gansynth_tpu_torch.utils.device import slope_in
 
     z, bias, g = _k4_inputs(shape, dtype, cuda_device)
     before = dict(K4.gen_epilogue.launches)

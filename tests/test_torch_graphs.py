@@ -426,8 +426,9 @@ def test_on_device_is_eager_off_a_card():
 def test_traced_kernel_names_map_to_the_port_kernels():
     """``profiling.port_kernel`` maps the device functions of
     ``kernels/csrc`` (as a trace names them: demangled, with template
-    arguments, or mangled) to K1/K2/K3/K4 and nothing else to any: the
-    step's mark kernels are none of them."""
+    arguments, or mangled) to K1/K2/K3/K4 and K3's backward kernels, and
+    nothing else to any: the step's mark kernels are none of them, and no
+    backward kernel is K3's forward."""
     import re
 
     from gansynth_tpu_torch.utils import profiling
@@ -448,6 +449,9 @@ def test_traced_kernel_names_map_to_the_port_kernels():
                      **{f"gen_epilogue_{fn}_{t}": "gen_epilogue"
                         for fn in ("fwd", "bwd", "bias_sum")
                         for t in ("bf16", "f32")},
+                     **{f"dblock_grad_{fn}_{t}": "dblock_grad"
+                        for fn in ("spread", "mask", "bias_sum")
+                        for t in ("bf16", "f32")},
                      **{f"step_mark_{m}": None for m in (
                          "start", "frontend", "critic", "generator",
                          "end", "anchor")}}
@@ -457,6 +461,13 @@ def test_traced_kernel_names_map_to_the_port_kernels():
     assert profiling.port_kernel(
         "_Z23dblock_nhwc_bf16_wgmma14CUtensorMap_stS_PK13__nv_bfloat16"
     ) == "dblock"
+    assert profiling.port_kernel(
+        "void (anonymous namespace)::dblock_nhwc_bf16_wgmma<1>("
+        "CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, ...)") == "dblock"
+    assert profiling.port_kernel(
+        "(anonymous namespace)::dblock_grad_spread_bf16(const uint4 *, "
+        "const unsigned char *, uint4 *, float *, long long, int, int, int, "
+        "float)") == "dblock_grad"
     for other in ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_"
                   "nhwckrsc_nhwc_tilesize128x128x64",
                   "void at::native::vectorized_elementwise_kernel<4, "
@@ -654,6 +665,7 @@ def test_graph_shape_bookkeeping(simulated):
     keys = set(launch_counts())
     assert keys == {"conv3x3_forward", "conv3x3_input_grad",
                     "conv3x3_recompute", "dblock", "dblock_recompute",
+                    "dblock_backward", "dblock_backward_plain",
                     "synthesis_spectrum", "gen_epilogue_forward",
                     "gen_epilogue_backward", "gen_epilogue_recompute"}
     one = {("forward", 8, 64, 512, 128, 256): 2,

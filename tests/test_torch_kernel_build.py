@@ -26,14 +26,33 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
+_HEADERS = {"conv3x3": ["hopper.cuh"],
+            "dblock": ["dblock_mask.cuh", "hopper.cuh"]}
+
+
 @pytest.mark.parametrize("name", ["conv3x3", "dblock"])
 def test_key_covers_the_shared_header(csrc, name):
     assert [h.name for h in _build.included_headers(csrc / f"{name}.cu")] \
-        == ["hopper.cuh"]
+        == _HEADERS[name]
     before = _build.build_key(name, "nvcc")
     with open(csrc / "hopper.cuh", "a") as f:
         f.write("\n// edited\n")
     assert _build.build_key(name, "nvcc") != before
+
+
+def test_k3s_two_libraries_share_the_mask_layout_header(csrc):
+    """The z1 mask's layout has one owner, ``dblock_mask.cuh``: the forward
+    that writes it and the backward that reads it both include it, and an
+    edit to it builds both anew."""
+    names = ("dblock", "dblock_grad")
+    for name in names:
+        assert "dblock_mask.cuh" in [
+            h.name for h in _build.included_headers(csrc / f"{name}.cu")]
+    before = [_build.build_key(name, "nvcc") for name in names]
+    with open(csrc / "dblock_mask.cuh", "a") as f:
+        f.write("\n// edited\n")
+    after = [_build.build_key(name, "nvcc") for name in names]
+    assert all(a != b for a, b in zip(before, after))
 
 
 def test_key_covers_headers_included_by_headers(csrc):

@@ -35,6 +35,10 @@ def _set_count(name, value):
         K3.fused_dblock.launches = value
     elif name == "dblock_recompute":
         K3.fused_dblock.recompute_launches = value
+    elif name == "dblock_backward":
+        K3.fused_dblock.backwards["kernel"] = value
+    elif name == "dblock_backward_plain":
+        K3.fused_dblock.backwards["plain"] = value
     else:
         K1.synthesis_spectrum.launches = value
 
