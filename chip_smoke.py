@@ -216,8 +216,10 @@ raises, so the exit code is non-zero):
     plain) and its ``dblock_grad_`` kernels by name. One
     ``{"k3_backward_check": ...}`` line.
 
-A replayed graph launches nothing through the wrappers: their counts add
-what the capture counted at each replay (``kernels.add_launch_counts``).
+A replayed graph launches nothing through the wrappers: the launch
+record adds what the capture counted at each replay (``kernels.add``).
+Every phase counts launches as deltas of ``kernels.launch_counts()``
+(:func:`launched_since`).
 Phases 8 and 15 hold those counts to the kernels that a
 ``torch.profiler`` trace of the replays shows ran on the device, by name
 (``utils/profiling.py:PORT_KERNELS``): the step's graph (phase 8, and
@@ -512,6 +514,15 @@ def bound(flops, nbytes, peak):
     t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def launched_since(before, *names):
+    """The kernel launches since ``before`` (an earlier
+    ``kernels.launch_counts()``) by name: those of ``names``, or all."""
+    from gansynth_tpu_torch.kernels import launch_counts
+
+    now = launch_counts()
+    return {k: now[k] - before.get(k, 0) for k in names or now}
 
 
 def _demangle(mangled: str) -> str:
@@ -1075,9 +1086,7 @@ def train_steps(device):
     one traced step whose kernels, counted by name, must agree."""
     import torch
 
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.train.step import make_train_step
     from gansynth_tpu_torch.utils.profiling import kernel_launches
 
@@ -1088,10 +1097,7 @@ def train_steps(device):
     torch.cuda.synchronize()
     g0, d0 = flat_params(state.g), flat_params(state.d)
 
-    conv3x3_same.launches.update(forward=0, input_grad=0)
-    fused_dblock.launches = 0
-    fused_dblock.backwards.update(kernel=0, plain=0)
-    gen_epilogue.launches.update(forward=0, backward=0)
+    before = launch_counts()
     times, metrics = [], []
     for _ in range(TRAIN_STEPS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1102,13 +1108,10 @@ def train_steps(device):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
         metrics.append({k: float(v) for k, v in m.items()})
-    launches = {"conv3x3_forward": conv3x3_same.launches["forward"],
-                "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
-                "dblock": fused_dblock.launches,
-                "dblock_backward": fused_dblock.backwards["kernel"],
-                "dblock_backward_plain": fused_dblock.backwards["plain"],
-                **{f"gen_epilogue_{k}": gen_epilogue.launches[k]
-                   for k in ("forward", "backward")}}
+    launches = launched_since(
+        before, "conv3x3_forward", "conv3x3_input_grad", "dblock",
+        "dblock_backward", "dblock_backward_plain", "gen_epilogue_forward",
+        "gen_epilogue_backward")
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         raise AssertionError(f"the training step never launched {bad}")
@@ -1230,10 +1233,7 @@ def train_loop(card, single_step_ms):
     import torch
 
     from gansynth_tpu_torch import cli
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.kernels import launch_counts
 
     config = loop_seed()
     if len(config.train.sample_pitches) != SAMPLE_BATCH:
@@ -1245,22 +1245,15 @@ def train_loop(card, single_step_ms):
 
     run_a = loop_dir("a")
     torch.cuda.reset_peak_memory_stats()
-    synthesis_spectrum.launches = 0
-    conv3x3_same.launches.update(forward=0, input_grad=0)
-    fused_dblock.launches = 0
-    fused_dblock.backwards.update(kernel=0, plain=0)
-    gen_epilogue.launches.update(forward=0, backward=0)
+    before = launch_counts()
     t = time.perf_counter()
     if cli.main(loop_argv(run_a, LOOP_STEPS)) != 0:
         raise AssertionError("cli train (run A) failed")
     torch.cuda.synchronize()
     run_a_s = time.perf_counter() - t
-    launches = {"synthesis_spectrum": synthesis_spectrum.launches,
-                "conv3x3_forward": conv3x3_same.launches["forward"],
-                "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
-                "dblock": fused_dblock.launches,
-                **{f"gen_epilogue_{k}": gen_epilogue.launches[k]
-                   for k in ("forward", "backward")}}
+    launches = launched_since(
+        before, "synthesis_spectrum", "conv3x3_forward", "conv3x3_input_grad",
+        "dblock", "gen_epilogue_forward", "gen_epilogue_backward")
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
@@ -1415,9 +1408,7 @@ def offline_cli(card):
     import torch
 
     from gansynth_tpu_torch import cli
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.utils.audio_io import read_wav
 
     with open(EVAL_REF) as f:
@@ -1466,18 +1457,18 @@ def offline_cli(card):
     launches, seconds, printed = {}, {}, {}
     torch.cuda.reset_peak_memory_stats()
     for name, argv in runs.items():
-        synthesis_spectrum.launches = 0
-        conv3x3_same.launches.update(forward=0, input_grad=0)
-        gen_epilogue.launches["forward"] = 0
+        before = launch_counts()
         buf = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         torch.cuda.synchronize()
         seconds[name] = time.perf_counter() - t
-        launches[name] = {"synthesis_spectrum": synthesis_spectrum.launches,
-                          "conv3x3": sum(conv3x3_same.launches.values()),
-                          "gen_epilogue": gen_epilogue.launches["forward"]}
+        ran = launched_since(before)
+        launches[name] = {"synthesis_spectrum": ran["synthesis_spectrum"],
+                          "conv3x3": sum(v for k, v in ran.items()
+                                         if k.startswith("conv3x3_")),
+                          "gen_epilogue": ran["gen_epilogue_forward"]}
         printed[name] = buf.getvalue()
         if rc != 0:
             raise AssertionError(f"cli {name} exited {rc}:\n"
@@ -1568,8 +1559,7 @@ def kernels_vs_plain_step(device):
     kernels and with the plain lowerings; every metric within STEP_BAR."""
     import torch
 
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.train.step import make_train_step
 
     results = {}
@@ -1577,14 +1567,14 @@ def kernels_vs_plain_step(device):
         config = training_config("float32", kernels)
         # one seed and step, so both draw the same noise
         state, stage, alpha, waves, pitches = training_setup(config, device)
-        before = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
+        before = launch_counts()
         _, m = make_train_step(config, stage)(state, waves, pitches, alpha)
         torch.cuda.synchronize()
-        after = (sum(conv3x3_same.launches.values()), fused_dblock.launches)
-        launched = after[0] > before[0] and after[1] > before[1]
+        ran = launched_since(before)
+        conv = sum(v for k, v in ran.items() if k.startswith("conv3x3_"))
+        launched = conv > 0 and ran["dblock"] > 0
         if launched != (kernels == "pallas"):
-            raise AssertionError(f"{kernels} step: kernel launches "
-                                 f"{before} -> {after}")
+            raise AssertionError(f"{kernels} step: kernel launches {ran}")
         results[kernels] = ({k: float(v) for k, v in m.items()},
                             flat_params(state.d), flat_params(state.g))
         del state
@@ -1606,6 +1596,7 @@ def render_flagship(device, config, generator, stage):
 
     import torch
 
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.kernels.synthesis import (
         synthesis_spectrum,
         synthesis_spectrum_plain,
@@ -1619,7 +1610,7 @@ def render_flagship(device, config, generator, stage):
     )
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
 
-    before = synthesis_spectrum.launches
+    before = launch_counts()
     waves = make_seeded_sampler(config, generator, stage)([0, 1, 2],
                                                           [36, 60, 84])
     torch.cuda.synchronize()
@@ -1630,7 +1621,7 @@ def render_flagship(device, config, generator, stage):
     rms = waves.float().pow(2).mean(dim=1).sqrt()
     if not bool((rms > 1e-3).all()):
         raise AssertionError(f"flagship notes are silent: rms {rms.tolist()}")
-    if synthesis_spectrum.launches <= before:
+    if not launched_since(before, "synthesis_spectrum")["synthesis_spectrum"]:
         raise AssertionError("flagship render did not launch K1")
 
     # One float32 note on the card (K1, cuDNN) against the same note on the
@@ -1690,7 +1681,7 @@ def bf16_vs_reference(device, config):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_reference_data as ref
 
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
 
     d = ref.load()
@@ -1699,13 +1690,13 @@ def bf16_vs_reference(device, config):
         model = dataclasses.replace(config.model, conv_kernel=conv_kernel)
         g = load_ema_generator(os.path.join(FLAGSHIP, "ema.npz"), model,
                                device)[0]
-        before = conv3x3_same.launches["forward"]
+        before = launch_counts()
         with torch.no_grad():
             image = g(torch.from_numpy(d["z"]).to(device),
                       torch.from_numpy(d["labels"]).to(device),
                       int(d["stage"]), 1.0)
         torch.cuda.synchronize()
-        launched = conv3x3_same.launches["forward"] - before
+        launched = launched_since(before, "conv3x3_forward")["conv3x3_forward"]
         if launched != (3 if conv_kernel == "pallas" else 0):
             raise AssertionError(f"{conv_kernel}: {launched} K2 launches")
         out[conv_kernel] = ref.check(image.cpu().numpy(), d["image"])
@@ -1814,9 +1805,7 @@ def export_phase(card, config):
     import torch
 
     from gansynth_tpu_torch import cli
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.synth.export import (
         load_sampler_artifact,
@@ -1865,16 +1854,16 @@ def export_phase(card, config):
                                   max_batch=MAX_BATCH)
     in_process.close()
 
-    synthesis_spectrum.launches = 0
-    gen_epilogue.launches["forward"] = 0
+    before = launch_counts()
     t = time.perf_counter()
     loaded = load_sampler_artifact(art, "cuda")
     out["load_seconds"] = time.perf_counter() - t
     service = SynthesisService(loaded.config(), None, exported=loaded,
                                max_batch=MAX_BATCH, request_timeout_s=120.0)
     health, replies = serve_requests(service)
-    out["launches"] = synthesis_spectrum.launches
-    out["k4_launches"] = gen_epilogue.launches["forward"]
+    ran = launched_since(before)
+    out["launches"] = ran["synthesis_spectrum"]
+    out["k4_launches"] = ran["gen_epilogue_forward"]
     if out["launches"] == 0 or out["k4_launches"] == 0:
         raise AssertionError(f"the exported sampler launched K1 "
                              f"{out['launches']} and K4 "
@@ -1927,14 +1916,15 @@ def export_phase(card, config):
     out["same_batch_rel_l2"] = same
 
     interp = os.path.join(EXPORT_DIR, "interpolate")
-    synthesis_spectrum.launches = 0
+    before = launch_counts()
     with contextlib.redirect_stdout(io.StringIO()):
         rc = cli.main(["interpolate", "--from-exported", art, "--output-dir",
                        interp, "--pitch", "60", "--pitch-b", "67",
                        "--steps", "9"])
     if rc != 0 or len(os.listdir(interp)) != 10:
         raise AssertionError(f"interpolate --from-exported: rc {rc}")
-    out["interpolate_launches"] = synthesis_spectrum.launches
+    out["interpolate_launches"] = launched_since(
+        before, "synthesis_spectrum")["synthesis_spectrum"]
 
     seed, pitch = EXPORT_NOTE
     card_wave = loaded([seed], [pitch]).cpu().numpy()
@@ -1958,12 +1948,12 @@ def export_phase(card, config):
     out["pallas_save_seconds"] = time.perf_counter() - t
     loaded = load_sampler_artifact(art_k2, "cuda")
     seeds, pitches = [0, 1, 2, 3], [36, 48, 60, 72]
-    synthesis_spectrum.launches = 0
-    conv3x3_same.launches.update(forward=0, input_grad=0)
+    before = launch_counts()
     got = loaded(seeds, pitches).cpu().numpy()
     torch.cuda.synchronize()
-    out["pallas_launches"] = {"synthesis_spectrum": synthesis_spectrum.launches,
-                              "conv3x3": conv3x3_same.launches["forward"]}
+    ran = launched_since(before, "synthesis_spectrum", "conv3x3_forward")
+    out["pallas_launches"] = {"synthesis_spectrum": ran["synthesis_spectrum"],
+                              "conv3x3": ran["conv3x3_forward"]}
     want = make_seeded_sampler(pallas, gen_k2, stage)(
         seeds, pitches).cpu().numpy()
     out["pallas_rel_l2"] = _rel(want, got)
@@ -1989,31 +1979,11 @@ DP_TURN_STEPS = 3
 DP_TRACED = 2  # steps of each form under torch.profiler
 
 
-def _kernel_counts():
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-
-    return {"conv3x3_forward": conv3x3_same.launches["forward"],
-            "conv3x3_input_grad": conv3x3_same.launches["input_grad"],
-            "conv3x3_recompute": conv3x3_same.launches["recompute"],
-            "dblock": fused_dblock.launches,
-            "dblock_recompute": fused_dblock.recompute_launches,
-            "dblock_backward": fused_dblock.backwards["kernel"],
-            "dblock_backward_plain": fused_dblock.backwards["plain"],
-            **{f"gen_epilogue_{k}": v
-               for k, v in gen_epilogue.launches.items()}}
-
-
-def _zero_kernel_counts():
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-
-    conv3x3_same.launches.update(forward=0, input_grad=0, recompute=0)
-    fused_dblock.launches = fused_dblock.recompute_launches = 0
-    fused_dblock.backwards.update(kernel=0, plain=0)
-    gen_epilogue.launches.update(forward=0, backward=0, recompute=0)
+# The training step's kernels, by their kernels.launch_counts() names.
+STEP_KERNELS = ("conv3x3_forward", "conv3x3_input_grad", "conv3x3_recompute",
+                "dblock", "dblock_recompute", "dblock_backward",
+                "dblock_backward_plain", "gen_epilogue_forward",
+                "gen_epilogue_backward", "gen_epilogue_recompute")
 
 
 def dp_step_timing(device, mesh):
@@ -2152,6 +2122,7 @@ def remat_step(device):
     kernels' launches (the recompute's apart)."""
     import torch
 
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.train.step import make_train_step
 
     out = {}
@@ -2164,10 +2135,10 @@ def remat_step(device):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        _zero_kernel_counts()
+        before = launch_counts()
         _, m = step(state, waves, pitches, alpha)
         torch.cuda.synchronize()
-        launches = _kernel_counts()
+        launches = launched_since(before, *STEP_KERNELS)
         peak = torch.cuda.max_memory_allocated()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -2208,8 +2179,7 @@ def serve_data_parallel(config, generator, stage):
     sampler's waves; K1 counted from the service's warm-up to the last
     reply."""
     from gansynth_tpu_torch import cli
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.synth.sampler import make_seeded_sampler
 
@@ -2231,14 +2201,14 @@ def serve_data_parallel(config, generator, stage):
     if max(alone) != 0.0:
         raise AssertionError(f"data-parallel replies alone differ from the "
                              f"in-process service's: {alone}")
-    synthesis_spectrum.launches = 0
-    gen_epilogue.launches["forward"] = 0
+    before = launch_counts()
     service, message = cli.make_service(args)
     if service is None:
         raise AssertionError(message)
     health, replies = serve_requests(service)
-    launches = synthesis_spectrum.launches
-    k4_launches = gen_epilogue.launches["forward"]
+    ran = launched_since(before, "synthesis_spectrum", "gen_epilogue_forward")
+    launches = ran["synthesis_spectrum"]
+    k4_launches = ran["gen_epilogue_forward"]
     if launches == 0 or k4_launches == 0:
         raise AssertionError(f"serve --data-parallel launched K1 {launches} "
                              f"and K4 {k4_launches} times")
@@ -2265,6 +2235,7 @@ def data_parallel(card, loop_ref, config, generator, stage):
     import torch.distributed as dist
 
     from gansynth_tpu_torch import cli
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.parallel import sharding
 
     mid = 415000 + LOOP_CADENCE
@@ -2308,12 +2279,12 @@ def data_parallel(card, loop_ref, config, generator, stage):
             if name == "replicate":
                 continue
             run = loop_dir(f"dp_{name}")
-            _zero_kernel_counts()
+            before = launch_counts()
             if cli.main([*loop_argv(run, LOOP_CADENCE), "--data-parallel",
                          *flags]) != 0:
                 raise AssertionError(f"cli train --data-parallel {flags}")
             torch.cuda.synchronize()
-            out["launches"][name] = _kernel_counts()
+            out["launches"][name] = launched_since(before, *STEP_KERNELS)
             bad = [k for k in ("conv3x3_forward", "conv3x3_input_grad",
                                "dblock", *K4_PER_STEP)
                    if out["launches"][name][k] == 0]
@@ -2367,8 +2338,8 @@ def _counting(fn, counts):
         try:
             return fn(*args)
         finally:
-            for k, v in launch_counts().items():
-                counts[k] = counts.get(k, 0) + v - before[k]
+            for k, v in launched_since(before).items():
+                counts[k] = counts.get(k, 0) + v
     return call
 
 
@@ -2457,6 +2428,7 @@ def _graph_training(device):
     import torch
 
     from gansynth_tpu_torch.data.fixtures import note_batch
+    from gansynth_tpu_torch.kernels import launch_counts
     from gansynth_tpu_torch.train.step import make_cached_superstep
     from gansynth_tpu_torch.utils.profiling import busy, in_turns, spread
 
@@ -2502,10 +2474,11 @@ def _graph_training(device):
     per_step = {}
 
     def counted(kind):
-        before = _kernel_counts()
+        before = launch_counts()
         run(kind, GRAPH_TURN_STEPS)
-        per_step.setdefault(kind, {k: (v - before[k]) / GRAPH_TURN_STEPS
-                                   for k, v in _kernel_counts().items()})
+        per_step.setdefault(kind, {
+            k: v / GRAPH_TURN_STEPS
+            for k, v in launched_since(before, *STEP_KERNELS).items()})
 
     times = in_turns({k: (lambda k=k: counted(k)) for k in steps},
                      GRAPH_TRAIN_TURNS, GRAPH_TURN_STEPS)
@@ -2782,12 +2755,8 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from gansynth_tpu_torch.cli import run_config
-    from gansynth_tpu_torch.kernels import _build
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import (
-        _device_taps,
-        synthesis_spectrum,
-    )
+    from gansynth_tpu_torch.kernels import _build, launch_counts
+    from gansynth_tpu_torch.kernels.synthesis import _device_taps
     from gansynth_tpu_torch.serve import SynthesisService
     from gansynth_tpu_torch.utils.checkpoint import load_ema_generator
     from gansynth_tpu_torch.utils.device import (
@@ -2907,13 +2876,12 @@ def main() -> int:
         + " (bar in tests/torch_reference_data.py)")
 
     t = time.perf_counter()
-    synthesis_spectrum.launches = 0
-    gen_epilogue.launches["forward"] = 0
+    before = launch_counts()
     health, _ = serve_requests(SynthesisService(
         config, generator, stage=stage, max_batch=MAX_BATCH,
         request_timeout_s=120.0))
-    launches = synthesis_spectrum.launches
-    k4_serve = gen_epilogue.launches["forward"]
+    ran = launched_since(before, "synthesis_spectrum", "gen_epilogue_forward")
+    launches, k4_serve = ran["synthesis_spectrum"], ran["gen_epilogue_forward"]
     if launches == 0 or k4_serve == 0:
         raise AssertionError(f"serving launched K1 {launches} and K4 "
                              f"{k4_serve} times")

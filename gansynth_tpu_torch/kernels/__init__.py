@@ -1,25 +1,43 @@
-"""Hand-written CUDA kernels, their builder and their plain versions.
+"""Hand-written CUDA kernels, their builder, their plain versions and the
+record of their launches.
 
 Nothing is built at import time: ``_build.load_library`` runs ``nvcc`` on
-the first launch of a kernel.
+the first launch of a kernel; ``_build.symbol`` binds a C entry and
+``_build.launch`` calls it.
 
-:func:`recomputing` marks a rematerialised forward pass
-(``models.layers.remat_call``): a wrapper launching its kernel inside it
-counts the launch apart from the model's own.
-
-:func:`launch_counts` and :func:`add_launch_counts` read and move every
-wrapper's launch counters at once, :func:`launch_shapes` and
-:func:`add_launch_shapes` K2's launches by shape, and
-:func:`gen_epilogue_shapes` and :func:`add_gen_epilogue_shapes` K4's, so
-that a CUDA graph (``utils/graphs.py``) can take back what its capture
-counted (a capture launches nothing) and add it at every replay.
+Every wrapper files each launch with :func:`count` in one record, keyed
+by ``(kernel, role, *shape)``. :func:`recomputing` marks a rematerialised
+forward pass (``models.layers.remat_call``): a launch inside it is filed
+under the role ``"recompute"``. :func:`record` copies the record and
+:func:`add` moves it, so that a CUDA graph (``utils/graphs.py``) can take
+back what its capture counted (a capture launches nothing) and add it at
+every replay. :func:`launch_counts`, :func:`launch_shapes` and
+:func:`gen_epilogue_shapes` are read-only views of it.
 """
 
 import contextlib
 import threading
-from typing import Dict
+from collections import Counter
+from typing import Dict, Mapping
 
 _RECOMPUTE = threading.local()
+_RECORD: Counter = Counter()
+_LOCK = threading.Lock()   # the serving, autograd and capture threads count
+
+# launch_counts()'s names by (kernel, role), in its order.
+_NAMES = {
+    ("conv3x3", "forward"): "conv3x3_forward",
+    ("conv3x3", "input_grad"): "conv3x3_input_grad",
+    ("conv3x3", "recompute"): "conv3x3_recompute",
+    ("dblock", "forward"): "dblock",
+    ("dblock", "recompute"): "dblock_recompute",
+    ("dblock", "backward"): "dblock_backward",
+    ("dblock", "backward_plain"): "dblock_backward_plain",
+    ("synthesis_spectrum", "forward"): "synthesis_spectrum",
+    ("gen_epilogue", "forward"): "gen_epilogue_forward",
+    ("gen_epilogue", "backward"): "gen_epilogue_backward",
+    ("gen_epilogue", "recompute"): "gen_epilogue_recompute",
+}
 
 
 @contextlib.contextmanager
@@ -37,83 +55,64 @@ def is_recomputing() -> bool:
     return getattr(_RECOMPUTE, "on", False)
 
 
-def _counted():
-    from gansynth_tpu_torch.kernels.conv import conv3x3_same
-    from gansynth_tpu_torch.kernels.dblock import fused_dblock
-    from gansynth_tpu_torch.kernels.gen_epilogue import gen_epilogue
-    from gansynth_tpu_torch.kernels.synthesis import synthesis_spectrum
+def count(kernel: str, role: str, *shape: int) -> None:
+    """One launch of ``kernel`` (``"conv3x3"``, ``"dblock"``,
+    ``"synthesis_spectrum"``, ``"gen_epilogue"``) in ``role``
+    (``"forward"``, ``"input_grad"``, ``"backward"``,
+    ``"backward_plain"``; ``"recompute"`` inside :func:`recomputing`) at
+    ``shape``: K2 ``(B, H, W, C_in, C_out)``, K3 ``(B, H, W, C1)``, K4
+    ``(B, H, W, C)``, K1 ``(B,)``."""
+    key = (kernel, "recompute" if is_recomputing() else role, *shape)
+    with _LOCK:
+        _RECORD[key] += 1
 
-    return conv3x3_same, fused_dblock, synthesis_spectrum, gen_epilogue
+
+def record() -> Counter:
+    """A copy of the record: launches by ``(kernel, role, *shape)``."""
+    with _LOCK:
+        return Counter(_RECORD)
+
+
+def add(delta: Mapping[tuple, int]) -> None:
+    """Add ``delta`` (keyed as :func:`record`) to the record; a key whose
+    count comes to 0 leaves it."""
+    with _LOCK:
+        for key, n in delta.items():
+            total = _RECORD[key] + n
+            if total:
+                _RECORD[key] = total
+            else:
+                _RECORD.pop(key, None)
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch counter, by name: ``conv3x3_forward``,
+    """Launches by name, over every shape: ``conv3x3_forward``,
     ``conv3x3_input_grad``, ``conv3x3_recompute``, ``dblock``,
     ``dblock_recompute``, ``dblock_backward`` (K3's backwards through its
     kernels), ``dblock_backward_plain`` (through the plain adjoints, on a
     card), ``synthesis_spectrum``, ``gen_epilogue_forward``,
-    ``gen_epilogue_backward``, ``gen_epilogue_recompute``."""
-    conv, dblock, synthesis, epilogue = _counted()
-    return {**{f"conv3x3_{k}": v for k, v in conv.launches.items()},
-            "dblock": dblock.launches,
-            "dblock_recompute": dblock.recompute_launches,
-            "dblock_backward": dblock.backwards["kernel"],
-            "dblock_backward_plain": dblock.backwards["plain"],
-            "synthesis_spectrum": synthesis.launches,
-            **{f"gen_epilogue_{k}": v for k, v in epilogue.launches.items()}}
+    ``gen_epilogue_backward``, ``gen_epilogue_recompute``; a launch that
+    none of them names (K1's inside :func:`recomputing`) under
+    ``<kernel>_<role>``."""
+    counts = dict.fromkeys(_NAMES.values(), 0)
+    for (kernel, role, *_), n in record().items():
+        name = _NAMES.get((kernel, role), f"{kernel}_{role}")
+        counts[name] = counts.get(name, 0) + n
+    return counts
 
 
-def add_launch_counts(delta: Dict[str, int]) -> None:
-    """Add ``delta`` (keyed as :func:`launch_counts`) to the counters."""
-    conv, dblock, synthesis, epilogue = _counted()
-    for k, v in delta.items():
-        if k.startswith("conv3x3_"):
-            conv.launches[k[len("conv3x3_"):]] += v
-        elif k.startswith("gen_epilogue_"):
-            epilogue.launches[k[len("gen_epilogue_"):]] += v
-        elif k == "dblock":
-            dblock.launches += v
-        elif k == "dblock_recompute":
-            dblock.recompute_launches += v
-        elif k == "dblock_backward":
-            dblock.backwards["kernel"] += v
-        elif k == "dblock_backward_plain":
-            dblock.backwards["plain"] += v
-        elif k == "synthesis_spectrum":
-            synthesis.launches += v
-        else:
-            raise KeyError(k)
+def _by_shape(kernel: str) -> Dict[tuple, int]:
+    return {(role, *shape): n
+            for (k, role, *shape), n in record().items() if k == kernel}
 
 
 def launch_shapes() -> Dict[tuple, int]:
-    """K2's launches by ``(role, B, H, W, C_in, C_out)``, ``role`` as in
-    :func:`launch_counts` (``"forward"``, ``"input_grad"``,
-    ``"recompute"``)."""
-    return dict(_counted()[0].shapes)
-
-
-def _add_shapes(shapes: Dict[tuple, int], delta: Dict[tuple, int]) -> None:
-    for k, v in delta.items():
-        n = shapes.get(k, 0) + v
-        if n:
-            shapes[k] = n
-        else:
-            shapes.pop(k, None)
-
-
-def add_launch_shapes(delta: Dict[tuple, int]) -> None:
-    """Add ``delta`` (keyed as :func:`launch_shapes`) to K2's record; a
-    shape whose count comes to 0 leaves it."""
-    _add_shapes(_counted()[0].shapes, delta)
+    """K2's launches by ``(role, B, H, W, C_in, C_out)``, ``role``
+    ``"forward"``, ``"input_grad"`` or ``"recompute"``."""
+    return _by_shape("conv3x3")
 
 
 def gen_epilogue_shapes() -> Dict[tuple, int]:
     """K4's launches by ``(role, B, H, W, C)``, ``role`` ``"forward"``,
     ``"backward"`` or ``"recompute"``."""
-    return dict(_counted()[3].shapes)
-
-
-def add_gen_epilogue_shapes(delta: Dict[tuple, int]) -> None:
-    """Add ``delta`` (keyed as :func:`gen_epilogue_shapes`) to K4's
-    record; a shape whose count comes to 0 leaves it."""
-    _add_shapes(_counted()[3].shapes, delta)
+    return _by_shape("gen_epilogue")

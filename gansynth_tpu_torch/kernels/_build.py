@@ -15,6 +15,10 @@ library is written to a temporary name and moved into place with
 behind, and there is no lock file to wait on. A library whose key
 directory already holds it is loaded without a build.
 
+:func:`symbol` binds a C entry of such a library once, and :func:`launch`
+calls it on the current CUDA stream: every wrapper in ``kernels/`` calls
+its kernels through these two.
+
 Nothing runs at import time; the first launch of a kernel calls
 :func:`load_library`.
 """
@@ -32,6 +36,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 PACKAGE_ROOT = Path(__file__).resolve().parents[2]
@@ -158,3 +164,30 @@ def load_library(name: str) -> KernelLibrary:
         if name not in _loaded:
             _loaded[name] = _compile(name)
         return _loaded[name]
+
+
+# The C entries' argument types: pointers, int, int64, float.
+PTR, I32, I64, F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
+
+
+def symbol(library: str, name: str, argtypes):
+    """The C entry ``name`` of ``csrc/<library>.cu``'s library (built on
+    first use), its argument types set once and its return an int."""
+    fn = getattr(load_library(library).lib, name)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(what: str, fn, device, *args) -> None:
+    """``fn(*args, stream)`` on ``device``'s current stream, each tensor in
+    ``args`` passed as its data pointer (None as a null pointer); raises
+    if ``fn`` returns a CUDA error."""
+    args = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+            for a in args]
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: cudaError {err}")

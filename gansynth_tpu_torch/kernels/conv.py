@@ -1,4 +1,4 @@
-"""K2: the 3x3 trunk convolution, its plain version and its launch counts.
+"""K2: the 3x3 trunk convolution and its plain version.
 
 ``conv3x3_same`` replaces the TPU kernel
 ``gansynth_tpu/kernels/pallas_conv.py:conv3x3_same`` (``_conv3x3_pallas``
@@ -22,13 +22,11 @@ io, and the weight gradient is a plain convolution over the batch axis
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from gansynth_tpu_torch.kernels import is_recomputing
-from gansynth_tpu_torch.kernels._build import load_library
+from gansynth_tpu_torch.kernels import count
+from gansynth_tpu_torch.kernels._build import I32, PTR, launch, symbol
 
 _SYMBOLS = {torch.float32: "conv3x3_nhwc_f32",
             torch.bfloat16: "conv3x3_nhwc_bf16"}
@@ -53,12 +51,7 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel(dtype: torch.dtype):
-    fn = getattr(load_library("conv3x3").lib, _SYMBOLS[dtype])
-    if fn.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-        fn.restype = ctypes.c_int
-    return fn
+    return symbol("conv3x3", _SYMBOLS[dtype], [PTR] * 3 + [I32] * 5 + [PTR])
 
 
 def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
@@ -77,25 +70,10 @@ def _launch(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
     k_hwoi = weight.permute(2, 3, 0, 1).contiguous()
     y = torch.empty((batch, height, width, c_out), dtype=x.dtype,
                     device=x.device)
-    fn = _kernel(x.dtype)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), k_hwoi.data_ptr(), y.data_ptr(), batch,
-                 height, width, c_in, c_out, stream)
-    if err != 0:
-        raise RuntimeError(f"conv3x3 kernel launch failed: cudaError {err}")
-    _count(role, batch, height, width, c_in, c_out)
+    launch("conv3x3 kernel", _kernel(x.dtype), x.device, x, k_hwoi, y, batch,
+           height, width, c_in, c_out)
+    count("conv3x3", role, batch, height, width, c_in, c_out)
     return y
-
-
-def _count(role: str, *shape: int) -> None:
-    """One launch under ``role`` (``"recompute"`` inside a rematerialised
-    forward) in ``conv3x3_same.launches``, and of its ``(role, B, H, W,
-    C_in, C_out)`` in ``conv3x3_same.shapes``."""
-    role = "recompute" if is_recomputing() else role
-    conv3x3_same.launches[role] += 1
-    key = (role, *shape)
-    conv3x3_same.shapes[key] = conv3x3_same.shapes.get(key, 0) + 1
 
 
 def _conv_cpu(x: torch.Tensor, weight: torch.Tensor, role: str) -> torch.Tensor:
@@ -150,18 +128,13 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """NHWC stride-1 SAME 3x3 conv, f32 accumulation, output in x's type.
 
     ``x`` [B, H, W, C_in] contiguous, ``weight`` [C_out, C_in, 3, 3] in x's
-    type. Launches the CUDA kernel for a CUDA tensor (counted in
-    ``conv3x3_same.launches["forward"]``; the launches of its backward
-    passes in ``["input_grad"]``, and those of a rematerialised forward,
-    ``ModelConfig.remat``, in ``["recompute"]``; and by role and shape in
-    ``conv3x3_same.shapes``); takes :func:`conv3x3_plain` for a CPU
+    type. Launches the CUDA kernel for a CUDA tensor (``kernels.count``:
+    the role ``"forward"``, ``"input_grad"`` for the launches of its
+    backward passes, ``"recompute"`` for those of a rematerialised
+    forward, ``ModelConfig.remat``); takes :func:`conv3x3_plain` for a CPU
     tensor. Differentiable to any order.
     """
     if x.ndim != 4 or tuple(weight.shape[1:]) != (x.shape[-1], 3, 3):
         raise ValueError(f"conv3x3_same: x {tuple(x.shape)} and weight "
                          f"{tuple(weight.shape)} do not fit")
     return _Conv3x3.apply(x, weight, "forward")
-
-
-conv3x3_same.launches = {"forward": 0, "input_grad": 0, "recompute": 0}
-conv3x3_same.shapes = {}   # (role, B, H, W, C_in, C_out) -> launches

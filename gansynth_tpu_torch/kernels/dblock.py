@@ -1,5 +1,5 @@
-"""K3: the fused stage-6 critic block and its backward, their plain versions
-and their launch counts.
+"""K3: the fused stage-6 critic block and its backward, and their plain
+versions.
 
 ``fused_dblock`` replaces the TPU kernel
 ``gansynth_tpu/kernels/pallas_dblock.py:fused_dblock`` (``_dblock_pallas``):
@@ -24,19 +24,25 @@ On a card with grad mode off, the forward has kept a0 and the sign of z1
 :func:`dblock_backward_saved` runs from them: the kernels of
 ``csrc/dblock_grad.cu`` spread the pooled gradient through z1's mask and
 apply a0's, with fixed-order bias sums, and the library's convs take
-the input and weight adjoints; nothing is recomputed.
-``fused_dblock.backwards`` counts the two routes on the card.
+the input and weight adjoints; nothing is recomputed. On the card
+``kernels.count`` counts the two routes apart (the roles ``"backward"``
+and ``"backward_plain"``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from gansynth_tpu_torch.kernels import is_recomputing
-from gansynth_tpu_torch.kernels._build import load_library
+from gansynth_tpu_torch.kernels import count
+from gansynth_tpu_torch.kernels._build import (
+    F32,
+    I32,
+    I64,
+    PTR,
+    launch,
+    symbol,
+)
 from gansynth_tpu_torch.utils.device import slope_in
 
 _SYMBOLS = {torch.float32: "dblock_nhwc_f32",
@@ -154,25 +160,9 @@ def mask_grad_plain(a0, g_a0, slope: float = 0.2):
     return g_z0, _bias_grad(g_z0, dt)
 
 
-_PTR, _I32, _I64, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float)
-
-
-def _lib(library: str, symbol: str, argtypes):
-    fn = getattr(load_library(library).lib, symbol)
-    if fn.argtypes is None:
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return fn
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()
-
-
 def _kernel(dtype: torch.dtype):
-    return _lib("dblock", _SYMBOLS[dtype],
-                [_PTR] * 8 + [_I32] * 4 + [_F32, _PTR])
+    return symbol("dblock", _SYMBOLS[dtype],
+                  [PTR] * 8 + [I32] * 4 + [F32, PTR])
 
 
 def _launch(x, k0, b0, k1, b1, slope: float, save: bool):
@@ -201,18 +191,9 @@ def _launch(x, k0, b0, k1, b1, slope: float, save: bool):
         a0 = torch.empty_like(x)
         mask = torch.empty((batch, height, width, mask_bytes(c1)),
                            dtype=torch.uint8, device=x.device)
-    fn = _kernel(dt)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), hwoi0.data_ptr(), b0c.data_ptr(),
-                 hwoi1.data_ptr(), b1c.data_ptr(), y.data_ptr(), _ptr(a0),
-                 _ptr(mask), batch, height, width, c1, float(slope), stream)
-    if err != 0:
-        raise RuntimeError(f"dblock kernel launch failed: cudaError {err}")
-    if is_recomputing():
-        fused_dblock.recompute_launches += 1
-    else:
-        fused_dblock.launches += 1
+    launch("dblock kernel", _kernel(dt), x.device, x, hwoi0, b0c, hwoi1, b1c,
+           y, a0, mask, batch, height, width, c1, float(slope))
+    count("dblock", "forward", batch, height, width, c1)
     return y, a0, mask
 
 
@@ -229,19 +210,11 @@ def _bias_scratch(rows: int, c: int, bias: bool, device):
     channels, or ``(None, None)`` without a bias gradient."""
     if not bias:
         return None, None
-    blocks = _lib("dblock_grad", "dblock_backward_blocks", [_I64, _I32])(
+    blocks = symbol("dblock_grad", "dblock_backward_blocks", [I64, I32])(
         rows, c)
     return (torch.empty((max(blocks, 1), c), dtype=torch.float32,
                         device=device),
             torch.empty(c, dtype=torch.float32, device=device))
-
-
-def _run(kind: str, fn, device, *args) -> None:
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"dblock backward ({kind}) launch failed: "
-                           f"cudaError {err}")
 
 
 def _spread(g, mask, slope: float, bias: bool):
@@ -251,11 +224,10 @@ def _spread(g, mask, slope: float, bias: bool):
     b, hp, wp, c = g.shape
     g_z1 = torch.empty((b, 2 * hp, 2 * wp, c), dtype=dt, device=g.device)
     partials, db1 = _bias_scratch(b * hp * wp, c, bias, g.device)
-    fn = _lib("dblock_grad", f"dblock_backward_spread_{_TYPES[dt]}",
-              [_PTR] * 5 + [_I64, _I32, _I32, _I32, _F32, _PTR])
-    _run("spread", fn, g.device, g.data_ptr(), mask.data_ptr(),
-         g_z1.data_ptr(), _ptr(partials), _ptr(db1), b * hp * wp, wp, c,
-         mask.shape[-1], slope_in(dt, slope))
+    fn = symbol("dblock_grad", f"dblock_backward_spread_{_TYPES[dt]}",
+                [PTR] * 5 + [I64, I32, I32, I32, F32, PTR])
+    launch("dblock backward (spread)", fn, g.device, g, mask, g_z1, partials,
+           db1, b * hp * wp, wp, c, mask.shape[-1], slope_in(dt, slope))
     return g_z1, db1
 
 
@@ -266,11 +238,10 @@ def _mask_grad(a0, g_a0, slope: float, bias: bool):
     c = g_a0.shape[-1]
     g_z0 = torch.empty_like(g_a0)
     partials, db0 = _bias_scratch(g_a0.numel() // c, c, bias, g_a0.device)
-    fn = _lib("dblock_grad", f"dblock_backward_mask_{_TYPES[dt]}",
-              [_PTR] * 5 + [_I64, _I32, _F32, _PTR])
-    _run("mask", fn, g_a0.device, a0.data_ptr(), g_a0.data_ptr(),
-         g_z0.data_ptr(), _ptr(partials), _ptr(db0), g_a0.numel() // c, c,
-         slope_in(dt, slope))
+    fn = symbol("dblock_grad", f"dblock_backward_mask_{_TYPES[dt]}",
+                [PTR] * 5 + [I64, I32, F32, PTR])
+    launch("dblock backward (mask)", fn, g_a0.device, a0, g_a0, g_z0,
+           partials, db0, g_a0.numel() // c, c, slope_in(dt, slope))
     return g_z0, db0
 
 
@@ -396,16 +367,17 @@ class _FusedDBlock(torch.autograd.Function):
         # Unpacked once: a rematerialised forward (ModelConfig.remat)
         # allows no second unpacking.
         saved = ctx.saved_tensors
+        shape = (*saved[0].shape[:3], saved[3].shape[0])   # B, H, W, C1
         if (_on_card(saved[0]) and saved[5] is not None
                 and not torch.is_grad_enabled()):
             # Grad mode is off, so nothing records these ops: the route is
             # once differentiable as it stands.
-            fused_dblock.backwards["kernel"] += 1
+            count("dblock", "backward", *shape)
             grads = dblock_backward_saved(*saved, g, ctx.slope,
                                           ctx.needs_input_grad[:5])
         else:
             if _on_card(saved[0]):   # create_graph, or C1 the kernels lack
-                fused_dblock.backwards["plain"] += 1
+                count("dblock", "backward_plain", *shape)
             grads = dblock_backward_plain(*saved[:5], g, ctx.slope,
                                           ctx.needs_input_grad[:5])
         return (*grads, None)
@@ -418,13 +390,12 @@ def fused_dblock(x, k0, b0, k1, b1, slope: float = 0.2) -> torch.Tensor:
     3], ``k1`` [C1, 64, 3, 3] OIHW with the eq-LR scale folded in, ``b0``,
     ``b1`` (any float type; cast to x's type, as the chain does). Returns
     [B, H/2, W/2, C1] in x's type. Launches the CUDA kernel for a CUDA
-    tensor (counted in ``fused_dblock.launches``, or in
-    ``fused_dblock.recompute_launches`` in a rematerialised forward,
-    ``ModelConfig.remat``); takes
+    tensor (``kernels.count``: the role ``"forward"``, ``"recompute"`` in a
+    rematerialised forward, ``ModelConfig.remat``); takes
     :func:`dblock_plain` for a CPU tensor. Differentiable to any order;
     on a card a first-order backward with grad mode off takes the
-    kernels (``fused_dblock.backwards["kernel"]``), one with grad mode on
-    the plain adjoints (``["plain"]``), as does every backward where C1 is
+    kernels (the role ``"backward"``), one with grad mode on the plain
+    adjoints (``"backward_plain"``), as does every backward where C1 is
     not a multiple of 8 (:func:`keeps_for_backward`).
     """
     if (x.ndim != 4 or x.shape[-1] != C_IN or tuple(k0.shape) !=
@@ -433,8 +404,3 @@ def fused_dblock(x, k0, b0, k1, b1, slope: float = 0.2) -> torch.Tensor:
         raise ValueError(f"fused_dblock: x {tuple(x.shape)}, k0 "
                          f"{tuple(k0.shape)}, k1 {tuple(k1.shape)} do not fit")
     return _FusedDBlock.apply(x, k0, b0, k1, b1, slope)
-
-
-fused_dblock.launches = 0
-fused_dblock.recompute_launches = 0
-fused_dblock.backwards = {"kernel": 0, "plain": 0}   # on a card, by route

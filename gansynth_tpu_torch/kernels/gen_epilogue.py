@@ -1,5 +1,5 @@
 """K4: the generator's per-conv epilogue, bias -> LeakyReLU -> pixel norm,
-its plain version, its first-order backward and its launch counts.
+its plain version and its first-order backward.
 
 ``gen_epilogue(z, bias, slope, eps)`` is ``pixel_norm(leaky_relu(z +
 bias.to(z.dtype), slope), eps)`` (``models/layers.py``) for the output z
@@ -33,14 +33,19 @@ atomics, so a CUDA graph's replay gives the eager run's bits.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from gansynth_tpu_torch.kernels import is_recomputing
-from gansynth_tpu_torch.kernels._build import load_library
+from gansynth_tpu_torch.kernels import count
+from gansynth_tpu_torch.kernels._build import (
+    F32,
+    I32,
+    I64,
+    PTR,
+    launch,
+    symbol,
+)
 from gansynth_tpu_torch.utils.device import slope_in
 
 _TYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -76,23 +81,14 @@ def gen_epilogue_backward_plain(z: torch.Tensor, bias: torch.Tensor,
 
 
 def _kernel(direction: str, dtype: torch.dtype):
-    lib = load_library("gen_epilogue").lib
-    fn = getattr(lib, f"gen_epilogue_{direction}_{_TYPES[dtype]}")
-    if fn.argtypes is None:
-        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
-                              ctypes.c_longlong, ctypes.c_float)
-        tensors = 3 if direction == "forward" else 6
-        fn.argtypes = [ptr] * tensors + [i64, i32, f32, f32, ptr]
-        fn.restype = ctypes.c_int
-    return fn
+    tensors = 3 if direction == "forward" else 6
+    return symbol("gen_epilogue", f"gen_epilogue_{direction}_{_TYPES[dtype]}",
+                  [PTR] * tensors + [I64, I32, F32, F32, PTR])
 
 
 def _blocks(rows: int, c: int, dtype: torch.dtype) -> int:
     """The backward's blocks: its rows of float32 partial sums."""
-    fn = load_library("gen_epilogue").lib.gen_epilogue_blocks
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
-        fn.restype = ctypes.c_int
+    fn = symbol("gen_epilogue", "gen_epilogue_blocks", [I64, I32, I32])
     return fn(rows, c, torch.finfo(dtype).bits // 8)
 
 
@@ -121,20 +117,6 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
                              "16-byte aligned NHWC tensors")
 
 
-def _count(role: str, z: torch.Tensor) -> None:
-    """One launch under ``role`` (``"recompute"`` inside a rematerialised
-    forward) in ``gen_epilogue.launches``, and of its ``(role, B, H, W,
-    C)`` in ``gen_epilogue.shapes``."""
-    role = "recompute" if is_recomputing() else role
-    gen_epilogue.launches[role] += 1
-    key = (role, *z.shape)
-    gen_epilogue.shapes[key] = gen_epilogue.shapes.get(key, 0) + 1
-
-
-def _stream(z: torch.Tensor):
-    return torch.cuda.current_stream(z.device).cuda_stream
-
-
 def _forward_cuda(z: torch.Tensor, bias: torch.Tensor, slope: float,
                   eps: float) -> torch.Tensor:
     _on_card("the forward", z)
@@ -142,14 +124,9 @@ def _forward_cuda(z: torch.Tensor, bias: torch.Tensor, slope: float,
     b = bias.to(device=z.device, dtype=torch.float32)
     y = torch.empty_like(z)
     c = z.shape[-1]
-    with torch.cuda.device(z.device):
-        err = _kernel("forward", z.dtype)(
-            z.data_ptr(), b.data_ptr(), y.data_ptr(), z.numel() // c, c,
-            slope_in(z.dtype, slope), eps, _stream(z))
-    if err != 0:
-        raise RuntimeError(f"gen_epilogue forward launch failed: cudaError "
-                           f"{err}")
-    _count("forward", z)
+    launch("gen_epilogue forward", _kernel("forward", z.dtype), z.device, z,
+           b, y, z.numel() // c, c, slope_in(z.dtype, slope), eps)
+    count("gen_epilogue", "forward", *z.shape)
     return y
 
 
@@ -166,16 +143,10 @@ def _backward_cuda(z: torch.Tensor, bias: torch.Tensor, g: torch.Tensor,
         partials = torch.empty((max(_blocks(rows, c, z.dtype), 1), c),
                                dtype=torch.float32, device=z.device)
         dbias = torch.empty(c, dtype=torch.float32, device=z.device)
-    with torch.cuda.device(z.device):
-        err = _kernel("backward", z.dtype)(
-            z.data_ptr(), b.data_ptr(), g.data_ptr(), dz.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), rows, c,
-            slope_in(z.dtype, slope), eps, _stream(z))
-    if err != 0:
-        raise RuntimeError(f"gen_epilogue backward launch failed: cudaError "
-                           f"{err}")
-    _count("backward", z)
+    launch("gen_epilogue backward", _kernel("backward", z.dtype), z.device,
+           z, b, g, dz, partials, dbias, rows, c, slope_in(z.dtype, slope),
+           eps)
+    count("gen_epilogue", "backward", *z.shape)
     return dz, None if dbias is None else dbias.to(bias.dtype)
 
 
@@ -225,10 +196,9 @@ def gen_epilogue(z: torch.Tensor, bias: torch.Tensor, slope: float = 0.2,
     ``z`` [B, H, W, C] NHWC (float32 or bf16; on a card contiguous and
     16-byte aligned), ``bias`` [C] (any float type). On a CPU tensor the
     plain chain, differentiable to any order; on a CUDA tensor the
-    kernels, counted in ``gen_epilogue.launches["forward"]`` (a
-    rematerialised forward, ``ModelConfig.remat``, in ``["recompute"]``)
-    and ``["backward"]``, and by role and shape in
-    ``gen_epilogue.shapes``; differentiable once.
+    kernels, counted by ``kernels.count`` in the roles ``"forward"`` (a
+    rematerialised forward, ``ModelConfig.remat``, in ``"recompute"``)
+    and ``"backward"``; differentiable once.
     """
     if z.ndim != 4 or tuple(bias.shape) != (z.shape[-1],):
         raise ValueError(f"gen_epilogue: z {tuple(z.shape)} and bias "
@@ -236,7 +206,3 @@ def gen_epilogue(z: torch.Tensor, bias: torch.Tensor, slope: float = 0.2,
     if type(z) is torch.Tensor and z.device.type == "cpu":
         return gen_epilogue_plain(z, bias, slope, eps)
     return _GenEpilogue.apply(z, bias, slope, eps)
-
-
-gen_epilogue.launches = {"forward": 0, "backward": 0, "recompute": 0}
-gen_epilogue.shapes = {}   # (role, B, H, W, C) -> launches

@@ -19,12 +19,11 @@ the other. Nothing is built at import time.
 
 from __future__ import annotations
 
-import ctypes
 import time
 
 import torch
 
-from gansynth_tpu_torch.kernels._build import load_library
+from gansynth_tpu_torch.kernels._build import I32, PTR, launch, symbol
 
 MARKS = ("start", "frontend", "critic", "generator", "end")
 ANCHOR = len(MARKS)   # the kernel step_mark_anchor
@@ -61,11 +60,7 @@ def step_mark_plain(totals: torch.Tensor, mark: int) -> None:
 
 
 def _entry():
-    fn = load_library("step_marks").lib.step_mark
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+    return symbol("step_marks", "step_mark", [I32, PTR, PTR])
 
 
 def step_mark(totals: torch.Tensor, mark: int) -> None:
@@ -83,8 +78,4 @@ def step_mark(totals: torch.Tensor, mark: int) -> None:
         return
     if totals.device.type != "cuda":
         raise ValueError(f"step_mark: unsupported device {totals.device}")
-    with torch.cuda.device(totals.device):
-        stream = torch.cuda.current_stream(totals.device).cuda_stream
-        err = _entry()(mark, totals.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"step mark launch failed: cudaError {err}")
+    launch("step mark", _entry(), totals.device, mark, totals)

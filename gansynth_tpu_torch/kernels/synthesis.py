@@ -1,4 +1,4 @@
-"""K1: the synthesis-spectrum kernel, its plain version and its launch count.
+"""K1: the synthesis-spectrum kernel and its plain version.
 
 ``synthesis_spectrum`` replaces the TPU kernel
 ``gansynth_tpu/kernels/pallas_synthesis.py:synthesis_spectrum_pallas``: a
@@ -15,13 +15,13 @@ one node of an exported program (``synth/export.py``).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from gansynth_tpu_torch.kernels._build import load_library
+from gansynth_tpu_torch.kernels import count
+from gansynth_tpu_torch.kernels._build import F32, I32, PTR, launch, symbol
 from gansynth_tpu_torch.ops.spectral import constant_cache, mel_pinv
 from gansynth_tpu_torch.utils.config import AudioConfig, scale
 
@@ -129,13 +129,9 @@ def _check(image: torch.Tensor, config: AudioConfig) -> None:
 
 
 def _kernel(dtype: torch.dtype):
-    fn = getattr(load_library("synthesis_spectrum").lib, _SYMBOLS[dtype])
-    if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr, ptr, i32, i32, i32,
-                       i32, f32, f32, f32, ptr]
-        fn.restype = ctypes.c_int
-    return fn
+    return symbol("synthesis_spectrum", _SYMBOLS[dtype],
+                  [PTR] * 4 + [I32] * 2 + [PTR] * 2 + [I32] * 4 + [F32] * 3
+                  + [PTR])
 
 
 def _spectrum_cpu(image: torch.Tensor, m2l: torch.Tensor, index: torch.Tensor,
@@ -160,17 +156,10 @@ def _spectrum_cuda(image, m2l, index, weight, strips, span_max, logmel_min,
     # Inverse of scale(x, logmel_min, logmel_max, -1, 1): x * a + b.
     a = (logmel_max - logmel_min) / 2.0
     b = (logmel_max + logmel_min) / 2.0
-    with torch.cuda.device(image.device):
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = fn(image.data_ptr(), index.data_ptr(), weight.data_ptr(),
-                 strips.data_ptr(), strips.shape[0], span_max, re.data_ptr(),
-                 im.data_ptr(), batch, frames, mel_bins, freq_bins, a, b,
-                 eps, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"synthesis_spectrum kernel launch failed: cudaError {err}"
-        )
-    synthesis_spectrum.launches += 1
+    launch("synthesis_spectrum kernel", fn, image.device, image, index,
+           weight, strips, strips.shape[0], span_max, re, im, batch, frames,
+           mel_bins, freq_bins, a, b, eps)
+    count("synthesis_spectrum", "forward", batch)
     return re, im
 
 
@@ -197,8 +186,8 @@ _EAGER = {"cpu": _spectrum_cpu, "cuda": _spectrum_cuda}
 def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
     """[B, 128, 1024, 2] f32 image -> (Re, Im) [B, 128, 1024] f32.
 
-    Launches the CUDA kernel for a CUDA tensor (and counts the launch in
-    ``synthesis_spectrum.launches``); takes the plain version for a CPU
+    Launches the CUDA kernel for a CUDA tensor (and counts the launch,
+    ``kernels.count``); takes the plain version for a CPU
     tensor; raises on any other device or on a shape, type, layout or
     alignment the kernel does not take. Under a trace (a tensor subclass)
     it calls the operator ``gansynth_torch::synthesis_spectrum``, whose
@@ -213,6 +202,3 @@ def synthesis_spectrum(image: torch.Tensor, config: AudioConfig):
     if type(image) is torch.Tensor:
         return _EAGER.get(image.device.type, _spectrum_cpu)(*args)
     return torch.ops.gansynth_torch.synthesis_spectrum(*args)
-
-
-synthesis_spectrum.launches = 0

@@ -17,10 +17,11 @@ capture. The capture then records ``fn`` into a private memory pool, whose
 tensors keep their addresses from replay to replay. Whatever ``fn`` reads
 must be a tensor at a fixed address (a static input that the caller
 copies into before a replay); a Python value that it reads is frozen at
-the capture. Kernel launches that the wrappers counted during the capture
-are taken back (a capture launches nothing) and added again at every
-replay (``kernels.launch_counts``, and K2's and K4's by shape,
-``kernels.launch_shapes`` and ``kernels.gen_epilogue_shapes``); the
+the capture. The kernel launches that the wrappers counted during the
+capture (``kernels.record``) are one delta, :attr:`Graph.launches`: it is
+taken back (a capture launches nothing) and added again at every replay
+(``kernels.add``), so every view of the record (``kernels.launch_counts``,
+``launch_shapes``, ``gen_epilogue_shapes``) counts the replays. The
 warm-up's launches are real and stay counted.
 
 :class:`GraphedCall` is ``fn(*tensors) -> tensor or tuple of tensors``
@@ -50,14 +51,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
-from gansynth_tpu_torch.kernels import (
-    add_gen_epilogue_shapes,
-    add_launch_counts,
-    add_launch_shapes,
-    gen_epilogue_shapes,
-    launch_counts,
-    launch_shapes,
-)
+from gansynth_tpu_torch.kernels import add, record
 
 
 def available(device) -> bool:
@@ -102,7 +96,8 @@ class Graph:
     ``warmup`` calls of ``fn`` run first, for real; ``before_capture``
     runs between them and the capture (to undo what the warm-up changed).
     :attr:`capture_seconds` is the capture's host time, the device's
-    synchronisation at its start included.
+    synchronisation at its start included; :attr:`launches` the kernel
+    launches a replay adds to ``kernels.record()``.
     ``pool`` shares another graph's memory pool (:meth:`pool`): safe
     where the graphs never run at once, as on one stream. ``mode`` is the
     capture's error mode (see the module's docstring)."""
@@ -114,31 +109,22 @@ class Graph:
         _warm_up(fn, self.device, warmup)
         if before_capture is not None:
             before_capture()
-        before, shapes = launch_counts(), launch_shapes()
-        epilogue_shapes = gen_epilogue_shapes()
+        before = record()
         t0 = time.perf_counter()
         try:
             self._graph, self.outputs = _capture(fn, self.device, pool,
                                                  mode)
             self.capture_seconds = time.perf_counter() - t0
         finally:
-            self.launches = _delta(launch_counts(), before)
-            self.shapes = _delta(launch_shapes(), shapes)
-            self.epilogue_shapes = _delta(gen_epilogue_shapes(),
-                                          epilogue_shapes)
-            add_launch_counts({k: -v for k, v in self.launches.items()})
-            add_launch_shapes({k: -v for k, v in self.shapes.items()})
-            add_gen_epilogue_shapes({k: -v for k, v in
-                                     self.epilogue_shapes.items()})
+            self.launches = _delta(record(), before)
+            add({k: -v for k, v in self.launches.items()})
 
     def pool(self):
         return self._graph.pool()
 
     def replay(self):
         self._graph.replay()
-        add_launch_counts(self.launches)
-        add_launch_shapes(self.shapes)
-        add_gen_epilogue_shapes(self.epilogue_shapes)
+        add(self.launches)
         return self.outputs
 
 

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 import gansynth_tpu.kernels.pallas_dblock as pd
 from gansynth_tpu.models.discriminator import DiscriminatorBlock as JBlock
 from gansynth_tpu_torch.kernels import dblock as K3
+from gansynth_tpu_torch.kernels import launch_counts
 from gansynth_tpu_torch.models import discriminator as tdisc
 from gansynth_tpu_torch.utils.checkpoint import from_jax_params
 
@@ -168,9 +169,9 @@ def test_block_routes_eligible_input_to_k3(monkeypatch):
 
 
 def test_wrapper_checks_shapes_and_counts_only_launches():
-    before = K3.fused_dblock.launches
+    before = launch_counts()
     K3.fused_dblock(*_torch(_inputs(1, 8, 16)), 0.2)
-    assert K3.fused_dblock.launches == before   # the CPU takes the plain path
+    assert launch_counts() == before   # the CPU takes the plain path
     t = _torch(_inputs(1, 8, 16))
     with pytest.raises(ValueError, match="do not fit"):
         K3.fused_dblock(t[0][..., :32], *t[1:], 0.2)
@@ -208,6 +209,14 @@ def kernel_route(monkeypatch):
     return _install_kernel_route(monkeypatch)
 
 
+def _backwards(before):
+    """K3's backwards by route since ``before`` (``launch_counts()``)."""
+    now = launch_counts()
+    return {route: now[name] - before[name] for route, name in
+            (("kernel", "dblock_backward"),
+             ("plain", "dblock_backward_plain"))}
+
+
 def _critic_and_images(seed=6, remat=False):
     """A narrow critic whose stage-3 block (64 channels at 16 x 128) takes
     K3, and a real and a fake image at that stage."""
@@ -243,17 +252,15 @@ def test_kernel_route_under_backward_never_under_create_graph(kernel_route):
     from gansynth_tpu_torch.train import losses
 
     critic, real, fake = _critic_and_images()
-    before = dict(K3.fused_dblock.backwards)
+    before = launch_counts()
     x_hat = losses.interpolate(real, fake, torch.full((2, 1, 1, 1), 0.375))
     x_hat.requires_grad_()
     torch.autograd.grad(critic(x_hat, 3)[0].sum(), x_hat, create_graph=True)
     assert kernel_route == {"spread": 0, "mask": 0}
-    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
-                                         "plain": before["plain"] + 1}
+    assert _backwards(before) == {"kernel": 0, "plain": 1}
     _critic_loss(critic, real, fake).backward()
     assert kernel_route == {"spread": 3, "mask": 3}
-    assert K3.fused_dblock.backwards == {"kernel": before["kernel"] + 3,
-                                         "plain": before["plain"] + 2}
+    assert _backwards(before) == {"kernel": 3, "plain": 2}
 
 
 @pytest.mark.parametrize("remat", [False, True])
@@ -333,12 +340,11 @@ def test_a_width_the_kernels_lack_keeps_the_plain_backward(kernel_route,
     args = _torch(_inputs(1, 8, 16, c1=100, seed=9), grad=True)
     g = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (1, 4, 8, 100)).astype(np.float32))
-    before = dict(K3.fused_dblock.backwards)
+    before = launch_counts()
     got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
     assert saves == [False]
     assert kernel_route == {"spread": 0, "mask": 0}
-    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
-                                         "plain": before["plain"] + 1}
+    assert _backwards(before) == {"kernel": 0, "plain": 1}
     want = torch.autograd.grad(K3.dblock_plain(*args, 0.2), args, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)

@@ -19,7 +19,14 @@ import pytest
 import torch
 
 from gansynth_tpu_torch.kernels import gen_epilogue as K4
-from gansynth_tpu_torch.kernels import gen_epilogue_shapes, recomputing
+from gansynth_tpu_torch.kernels import (
+    add,
+    count,
+    gen_epilogue_shapes,
+    launch_counts,
+    record,
+    recomputing,
+)
 from gansynth_tpu_torch.models.generator import GeneratorBlock
 from gansynth_tpu_torch.models.layers import leaky_relu, pixel_norm
 
@@ -178,21 +185,26 @@ def test_the_kernels_take_their_widths_and_refuse_a_copy():
         K4.gen_epilogue(torch.zeros(2, 3, 4, 64), torch.zeros(32))
 
 
-def test_launches_are_counted_by_role_and_shape(monkeypatch):
-    monkeypatch.setattr(K4.gen_epilogue, "launches",
-                        dict.fromkeys(K4.gen_epilogue.launches, 0))
-    monkeypatch.setattr(K4.gen_epilogue, "shapes", {})
-    z = torch.empty(8, 128, 1024, 64, device="meta")
-    K4._count("forward", z)
-    K4._count("backward", z)
-    with recomputing():
-        K4._count("forward", z)
-    assert K4.gen_epilogue.launches == {"forward": 1, "backward": 1,
-                                        "recompute": 1}
-    want = {(role, 8, 128, 1024, 64): 1
-            for role in ("forward", "backward", "recompute")}
-    assert gen_epilogue_shapes() == want
-    # the CPU path launches nothing
-    zc = torch.zeros(1, 2, 2, 64, requires_grad=True)
-    K4.gen_epilogue(zc, torch.zeros(64)).sum().backward()
-    assert gen_epilogue_shapes() == want
+def test_launches_are_counted_by_role_and_shape():
+    saved = record()
+    add({k: -v for k, v in saved.items()})   # from an empty record
+    try:
+        shape = (8, 128, 1024, 64)
+        count("gen_epilogue", "forward", *shape)
+        count("gen_epilogue", "backward", *shape)
+        with recomputing():
+            count("gen_epilogue", "forward", *shape)
+        assert {k: v for k, v in launch_counts().items()
+                if k.startswith("gen_epilogue_")} == {
+            "gen_epilogue_forward": 1, "gen_epilogue_backward": 1,
+            "gen_epilogue_recompute": 1}
+        want = {(role, *shape): 1
+                for role in ("forward", "backward", "recompute")}
+        assert gen_epilogue_shapes() == want
+        # the CPU path launches nothing
+        zc = torch.zeros(1, 2, 2, 64, requires_grad=True)
+        K4.gen_epilogue(zc, torch.zeros(64)).sum().backward()
+        assert gen_epilogue_shapes() == want
+    finally:
+        add({k: -v for k, v in record().items()})
+        add(saved)

@@ -31,6 +31,7 @@ import torch
 
 from gansynth_tpu_torch.kernels import conv as K2
 from gansynth_tpu_torch.kernels import dblock as K3
+from gansynth_tpu_torch.kernels import launch_counts
 from gansynth_tpu_torch.kernels import synthesis as K
 from gansynth_tpu_torch.ops import spectral as tspec
 from gansynth_tpu_torch.utils.config import AudioConfig
@@ -47,6 +48,11 @@ def cuda_device():
 
     set_precision()
     return torch.device("cuda")
+
+
+def _since(before):
+    """``launch_counts()`` less ``before``, an earlier ``launch_counts()``."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts().items()}
 
 
 def _image(batch, device, seed):
@@ -67,10 +73,10 @@ def _wave_bar(want, got):
 @pytest.mark.parametrize("batch", [1, 3, 4, 8, 9, 16, 61])
 def test_synthesis_kernel_matches_plain(cuda_device, batch):
     x = _image(batch, cuda_device, batch)
-    before = K.synthesis_spectrum.launches
+    before = launch_counts()
     re, im = K.synthesis_spectrum(x, CFG)
     torch.cuda.synchronize()
-    assert K.synthesis_spectrum.launches == before + 1
+    assert _since(before)["synthesis_spectrum"] == 1
     pre, pim = K.synthesis_spectrum_plain(x, CFG)
     torch.testing.assert_close(re, pre, rtol=0, atol=2e-2)
     torch.testing.assert_close(im, pim, rtol=0, atol=2e-2)
@@ -80,12 +86,12 @@ def test_synthesis_kernel_matches_plain(cuda_device, batch):
 @pytest.mark.gpu
 def test_image_to_wave_takes_the_kernel_on_cuda(cuda_device):
     x = _image(2, cuda_device, 7)
-    before = K.synthesis_spectrum.launches
+    before = launch_counts()
     got = tspec.image_to_wave(x, CFG)
-    assert K.synthesis_spectrum.launches == before + 1
+    assert _since(before)["synthesis_spectrum"] == 1
     plain = tspec.image_to_wave(
         x, dataclasses.replace(CFG, synthesis_kernel="xla"))
-    assert K.synthesis_spectrum.launches == before + 1
+    assert _since(before)["synthesis_spectrum"] == 1
     _wave_bar(plain, got)
     with pytest.raises(ValueError, match="aligned"):
         K.synthesis_spectrum(
@@ -184,12 +190,13 @@ def test_conv3x3_matches_plain(cuda_device, dtype, shape):
     wt = _rand((c_out, c_in, 3, 3), cuda_device, 2, dtype,
                (9 * c_in) ** -0.5).requires_grad_()
     r = _rand((b, h, w, c_out), cuda_device, 3, dtype)
-    before = dict(K2.conv3x3_same.launches)
+    before = launch_counts()
     y = K2.conv3x3_same(x, wt)
     gx, gw = torch.autograd.grad((y * r).sum(), (x, wt))
     torch.cuda.synchronize()
-    assert K2.conv3x3_same.launches["forward"] == before["forward"] + 1
-    assert K2.conv3x3_same.launches["input_grad"] == before["input_grad"] + 1
+    launched = _since(before)
+    assert launched["conv3x3_forward"] == 1
+    assert launched["conv3x3_input_grad"] == 1
     y_p = K2.conv3x3_plain(x, wt)
     gx_p, gw_p = torch.autograd.grad((y_p * r).sum(), (x, wt))
     _close(y, y_p, _TOL[dtype])
@@ -202,10 +209,10 @@ def test_conv3x3_matches_plain(cuda_device, dtype, shape):
 def test_conv3x3_bf16_rejects_channels_off_8(cuda_device, c_in, c_out):
     x = _rand((1, 4, 16, c_in), cuda_device, 1, torch.bfloat16)
     wt = _rand((c_out, c_in, 3, 3), cuda_device, 2, torch.bfloat16)
-    before = dict(K2.conv3x3_same.launches)
+    before = launch_counts()
     with pytest.raises(ValueError, match="multiples of 8"):
         K2.conv3x3_same(x, wt)
-    assert K2.conv3x3_same.launches == before
+    assert launch_counts() == before
 
 
 @pytest.mark.gpu
@@ -259,11 +266,11 @@ def test_dblock_matches_plain(cuda_device, dtype, shape):
     for a in args:
         a.requires_grad_()
     r = _rand((b, h // 2, w // 2, c1), cuda_device, 20, dtype)
-    before = K3.fused_dblock.launches
+    before = launch_counts()
     y = K3.fused_dblock(*args, 0.2)
     g = torch.autograd.grad((y * r).sum(), args)
     torch.cuda.synchronize()
-    assert K3.fused_dblock.launches == before + 1
+    assert _since(before)["dblock"] == 1
     y_p = K3.dblock_plain(*args, 0.2)
     g_p = torch.autograd.grad((y_p * r).sum(), args)
     _close(y, y_p, 1e-5 if dtype == torch.float32 else 3e-2)
@@ -421,11 +428,12 @@ def test_dblock_kernel_backward_matches_the_plain_adjoints(cuda_device,
     for a in args:
         a.requires_grad_()
     g = _rand((b, h // 2, w // 2, c1), cuda_device, 21, dtype)
-    before = dict(K3.fused_dblock.backwards)
+    before = launch_counts()
     got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
     torch.cuda.synchronize()
-    assert K3.fused_dblock.backwards == {"kernel": before["kernel"] + 1,
-                                         "plain": before["plain"]}
+    launched = _since(before)
+    assert launched["dblock_backward"] == 1
+    assert launched["dblock_backward_plain"] == 0
     with torch.no_grad():
         want = K3.dblock_backward_plain(*[a.detach() for a in args], g)
     if dtype == torch.float32:
@@ -444,13 +452,13 @@ def test_dblock_odd_width_takes_the_plain_backward(cuda_device):
     for a in args:
         a.requires_grad_()
     g = _rand((1, 10, 20, 100), cuda_device, 21, torch.bfloat16)
-    before = dict(K3.fused_dblock.backwards)
-    launches = K3.fused_dblock.launches
+    before = launch_counts()
     got = torch.autograd.grad(K3.fused_dblock(*args, 0.2), args, g)
     torch.cuda.synchronize()
-    assert K3.fused_dblock.launches == launches + 1
-    assert K3.fused_dblock.backwards == {"kernel": before["kernel"],
-                                         "plain": before["plain"] + 1}
+    launched = _since(before)
+    assert launched["dblock"] == 1
+    assert launched["dblock_backward"] == 0
+    assert launched["dblock_backward_plain"] == 1
     with torch.no_grad():
         want = K3.dblock_backward_plain(*[a.detach() for a in args], g)
     for a, b_ in zip(got, want):
@@ -548,13 +556,13 @@ def test_flagship_bf16_generator_matches_reference_file(cuda_device,
     model = dataclasses.replace(config.model, conv_kernel=conv_kernel)
     g, _, _ = load_ema_generator(os.path.join(flagship, "ema.npz"), model,
                                  cuda_device)
-    before = K2.conv3x3_same.launches["forward"]
+    before = launch_counts()
     with torch.no_grad():
         got = g(torch.from_numpy(d["z"]).to(cuda_device),
                 torch.from_numpy(d["labels"]).to(cuda_device),
                 int(d["stage"]), 1.0)
     torch.cuda.synchronize()
-    launched = K2.conv3x3_same.launches["forward"] - before
+    launched = _since(before)["conv3x3_forward"]
     assert launched == (3 if conv_kernel == "pallas" else 0)
     ref.check(got.cpu().numpy(), d["image"])
 
@@ -581,12 +589,12 @@ def test_exported_sampler_launches_the_kernel(cuda_device, tmp_path):
                                  step=1, stage=2)
     on_card = load_sampler_artifact(path, "cuda")
     seeds, pitch = [0, 1, 2], [30, 60, 84]
-    before = K.synthesis_spectrum.launches
+    before = launch_counts()
     got = on_card(seeds, pitch)
     torch.cuda.synchronize()
     # the rung's first call: a warm-up batch, then the captured graph's
     # replay (utils/graphs.py), one launch each
-    assert K.synthesis_spectrum.launches == before + 2
+    assert _since(before)["synthesis_spectrum"] == 2
     want = make_seeded_sampler(config, gen, 2)(seeds, pitch)
     rel = float((got - want).norm() / want.norm())
     assert rel <= 1e-3
@@ -594,7 +602,7 @@ def test_exported_sampler_launches_the_kernel(cuda_device, tmp_path):
     cpu = on_cpu(seeds, pitch)
     assert cpu.device.type == "cpu"
     # two more from the in-process sampler's first call, none from the CPU
-    assert K.synthesis_spectrum.launches == before + 4
+    assert _since(before)["synthesis_spectrum"] == 4
     _wave_bar(cpu, got.cpu())
 
 
@@ -788,9 +796,9 @@ def test_serving_graphs_equal_eager_at_each_rung(cuda_device, tmp_path):
         for sample, ref in ((graphed, want),
                             (exported, exported_eager(seeds, pitches))):
             sample(seeds, pitches)   # the rung's capture
-            before = K.synthesis_spectrum.launches
+            before = launch_counts()
             got = sample(seeds, pitches)
-            assert K.synthesis_spectrum.launches == before + 1
+            assert _since(before)["synthesis_spectrum"] == 1
             assert torch.equal(got, ref)
             traced = kernel_launches(lambda: sample(seeds, pitches))
             assert traced["synthesis_spectrum"] == 1
@@ -837,10 +845,10 @@ def test_keyed_sampler_graphs_equal_eager(deterministic_cudnn, batch):
         config, gen, 2, graphs=False)
     want = eager(key, pitches)
     graphed(key, pitches)   # the batch size's capture
-    before = K.synthesis_spectrum.launches
+    before = launch_counts()
     got = graphed(key, pitches)
     torch.cuda.synchronize()
-    assert K.synthesis_spectrum.launches == before + 1
+    assert _since(before)["synthesis_spectrum"] == 1
     for x, y in zip(got, want):
         assert torch.equal(x, y)
     z = torch.randn(batch, config.model.latent_dim,
@@ -1147,7 +1155,7 @@ def test_gen_epilogue_matches_plain(cuda_device, dtype, shape):
     from gansynth_tpu_torch.kernels import gen_epilogue as K4
 
     z, bias, g = _k4_inputs(shape, dtype, cuda_device)
-    before = dict(K4.gen_epilogue.launches)
+    before = launch_counts()
     grads = []
     for fn in (K4.gen_epilogue, K4.gen_epilogue_plain):
         zr, br = z.clone().requires_grad_(), bias.clone().requires_grad_()
@@ -1155,8 +1163,10 @@ def test_gen_epilogue_matches_plain(cuda_device, dtype, shape):
         y.backward(g)
         grads.append((y.detach(), zr.grad, br.grad))
     torch.cuda.synchronize()
-    assert {k: v - before[k] for k, v in K4.gen_epilogue.launches.items()} \
-        == {"forward": 1, "backward": 1, "recompute": 0}
+    assert {k: v for k, v in _since(before).items()
+            if k.startswith("gen_epilogue_")} == {
+        "gen_epilogue_forward": 1, "gen_epilogue_backward": 1,
+        "gen_epilogue_recompute": 0}
     (y, dz, db), (yp, dzp, dbp) = grads
     ulps = K4_ULPS[dtype]
     _within_ulps(y, yp, ulps)
@@ -1197,9 +1207,8 @@ def test_gen_epilogue_graph_replay_equals_eager(cuda_device):
 
     want = run()
     graph = graphs.Graph(run, cuda_device)
-    assert graph.launches["gen_epilogue_forward"] == 1
-    assert graph.epilogue_shapes == {("forward", *shape): 1,
-                                     ("backward", *shape): 1}
+    assert graph.launches == {("gen_epilogue", "forward", *shape): 1,
+                              ("gen_epilogue", "backward", *shape): 1}
     shapes = gen_epilogue_shapes()
     for _ in range(3):
         got = graph.replay()

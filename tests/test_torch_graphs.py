@@ -36,10 +36,12 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
   superstep counts its steps, every phase, and totals that sum to the
   host's time from its first step's start to its last one's end; with
   the capture simulated each replay adds one step, the warm-up is undone
-  and a failed capture leaves the count; K2's and K4's launches by shape
-  (``kernels.launch_shapes``, ``kernels.gen_epilogue_shapes``) are taken
-  back at a capture and added at every replay, and ``launch_counts``
-  keeps its keys.
+  and a failed capture leaves the count; the launch record
+  (``kernels.count``, keyed by kernel, role and shape) is taken back at
+  a capture and added at every replay, one delta, so its views
+  (``launch_counts``, ``launch_shapes``, ``gen_epilogue_shapes``) count
+  the replays; ``launch_counts`` keeps its eleven names, the views their
+  keys, and threads that count at once lose no launch.
 """
 
 import os
@@ -57,13 +59,14 @@ from gansynth_tpu.train import create_train_state as j_create
 from gansynth_tpu.train import make_train_step as j_make_step
 from gansynth_tpu.train.step import real_image_for_stage as j_real
 from gansynth_tpu_torch.data.fixtures import note_batch
-from gansynth_tpu_torch.kernels import conv as K2
-from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import gen_epilogue as K4
 from gansynth_tpu_torch.kernels import (
+    add,
+    count,
     gen_epilogue_shapes,
     launch_counts,
     launch_shapes,
+    record,
+    recomputing,
 )
 from gansynth_tpu_torch.kernels import synthesis as K1
 from gansynth_tpu_torch.models.generator import Generator
@@ -224,14 +227,6 @@ def test_a_checkpoint_of_commit_8787f8c_restores_and_resumes(tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def _launch():
-    """What the wrappers count for a small 'kernel program'."""
-    K1.synthesis_spectrum.launches += 1
-    K2.conv3x3_same.launches["forward"] += 2
-    K3.fused_dblock.launches += 1
-    return "outputs"
-
-
 def _delta(after, before):
     return {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)}
@@ -247,22 +242,138 @@ def simulated(monkeypatch):
     return torch_graph_sim.install(monkeypatch.setattr)
 
 
-def test_graph_launch_bookkeeping(simulated):
-    before = launch_counts()
-    g = graphs.Graph(_launch, "cpu", warmup=2)
-    captured = launch_counts()
-    one = {"synthesis_spectrum": 1, "conv3x3_forward": 2, "dblock": 1}
+def _launches():
+    """What the wrappers count for a small 'kernel program'."""
+    count("synthesis_spectrum", "forward", 4)
+    for _ in range(2):
+        count("conv3x3", "forward", 8, 64, 512, 128, 256)
+    count("dblock", "forward", 8, 128, 1024, 128)
+    return "outputs"
+
+
+def _shapes():
+    """What K2's and K4's wrappers count for a small 'kernel program'."""
+    for _ in range(2):
+        count("conv3x3", "forward", 8, 64, 512, 128, 256)
+    count("conv3x3", "input_grad", 8, 64, 512, 256, 128)
+    count("gen_epilogue", "forward", 8, 128, 1024, 64)
+    count("gen_epilogue", "backward", 8, 64, 512, 128)
+    return "outputs"
+
+
+def _by_shape():
+    """K2's and K4's views of the record side by side."""
+    return {**{("K2", *k): v for k, v in launch_shapes().items()},
+            **{("K4", *k): v for k, v in gen_epilogue_shapes().items()}}
+
+
+NAMES = {"conv3x3_forward", "conv3x3_input_grad", "conv3x3_recompute",
+         "dblock", "dblock_recompute", "dblock_backward",
+         "dblock_backward_plain", "synthesis_spectrum",
+         "gen_epilogue_forward", "gen_epilogue_backward",
+         "gen_epilogue_recompute"}
+# case -> (program, a view of the record, the view's launches a call, the
+# record's launches a call)
+BOOKKEEPING = {
+    "launch": (_launches, launch_counts,
+               {"synthesis_spectrum": 1, "conv3x3_forward": 2, "dblock": 1},
+               {("synthesis_spectrum", "forward", 4): 1,
+                ("conv3x3", "forward", 8, 64, 512, 128, 256): 2,
+                ("dblock", "forward", 8, 128, 1024, 128): 1}),
+    "shape": (_shapes, _by_shape,
+              {("K2", "forward", 8, 64, 512, 128, 256): 2,
+               ("K2", "input_grad", 8, 64, 512, 256, 128): 1,
+               ("K4", "forward", 8, 128, 1024, 64): 1,
+               ("K4", "backward", 8, 64, 512, 128): 1},
+              {("conv3x3", "forward", 8, 64, 512, 128, 256): 2,
+               ("conv3x3", "input_grad", 8, 64, 512, 256, 128): 1,
+               ("gen_epilogue", "forward", 8, 128, 1024, 64): 1,
+               ("gen_epilogue", "backward", 8, 64, 512, 128): 1}),
+}
+
+
+@pytest.mark.parametrize("case", ["launch", "shape"])
+def test_graph_bookkeeping(simulated, case):
+    """A capture's launches are taken back, one delta of the record, and
+    added at every replay; a failed capture leaves the record as it
+    was."""
+    program, view, one, delta = BOOKKEEPING[case]
+    before = view()
+    g = graphs.Graph(program, "cpu", warmup=2)
+    captured = view()
     assert _delta(captured, before) == {k: 2 * v for k, v in one.items()}
-    assert g.launches == one
+    assert g.launches == delta
     for _ in range(3):
         assert g.replay() == "outputs"
-    assert _delta(launch_counts(), captured) == {k: 3 * v
-                                                 for k, v in one.items()}
+    assert _delta(view(), captured) == {k: 3 * v for k, v in one.items()}
+    assert set(launch_counts()) == NAMES
     simulated["fail"] = "operation not permitted when stream is capturing"
-    mark = launch_counts()
+    mark = view()
     with pytest.raises(RuntimeError, match="capturing"):
-        graphs.Graph(_launch, "cpu", warmup=0)
-    assert launch_counts() == mark
+        graphs.Graph(program, "cpu", warmup=0)
+    assert view() == mark
+
+
+def test_launch_record_contract():
+    """``kernels.count`` files a launch under its role, or under
+    ``"recompute"`` inside ``recomputing()``, for each of the four
+    kernels, and ``launch_counts`` names both; ``launch_counts`` has the
+    eleven names, and ``launch_shapes`` and ``gen_epilogue_shapes`` the
+    key tuples that the benchmark's readers take."""
+    # kernel -> (shape, role, launch_counts' names of the role and of its
+    # recompute)
+    cases = {"conv3x3": ((8, 64, 512, 128, 256), "input_grad",
+                         "conv3x3_input_grad", "conv3x3_recompute"),
+             "dblock": ((8, 128, 1024, 128), "backward_plain",
+                        "dblock_backward_plain", "dblock_recompute"),
+             "synthesis_spectrum": ((4,), "forward", "synthesis_spectrum",
+                                    "synthesis_spectrum_recompute"),
+             "gen_epilogue": ((8, 128, 1024, 64), "backward",
+                              "gen_epilogue_backward",
+                              "gen_epilogue_recompute")}
+    saved = record()
+    add({k: -v for k, v in saved.items()})   # from an empty record
+    try:
+        assert launch_counts() == dict.fromkeys(NAMES, 0)
+        for kernel, (shape, role, name, recompute) in cases.items():
+            before, named = record(), launch_counts()
+            count(kernel, role, *shape)
+            with recomputing():
+                count(kernel, role, *shape)
+            assert _delta(record(), before) == {
+                (kernel, role, *shape): 1, (kernel, "recompute", *shape): 1}
+            assert _delta(launch_counts(), named) == {name: 1, recompute: 1}
+        assert launch_shapes() == {("input_grad", 8, 64, 512, 128, 256): 1,
+                                   ("recompute", 8, 64, 512, 128, 256): 1}
+        assert gen_epilogue_shapes() == {("backward", 8, 128, 1024, 64): 1,
+                                         ("recompute", 8, 128, 1024, 64): 1}
+    finally:
+        add(graphs._delta(saved, record()))
+    assert record() == saved
+
+
+def test_launch_record_counts_every_thread():
+    """Threads that count at once (the batcher, autograd's engine, a
+    capture) lose no launch."""
+    import sys
+    import threading
+
+    saved, interval = record(), sys.getswitchinterval()
+    threads = [threading.Thread(target=lambda: [
+        count("conv3x3", "forward", 1, 2, 16, 8, 8) for _ in range(2000)])
+        for _ in range(16)]
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert _delta(record(), saved) == {
+            ("conv3x3", "forward", 1, 2, 16, 8, 8): 16 * 2000}
+    finally:
+        sys.setswitchinterval(interval)
+        add(graphs._delta(saved, record()))
 
 
 def test_seeded_sampler_graphs_equal_eager(simulated):
@@ -649,43 +760,3 @@ def test_replays_add_the_captures_steps(simulated):
     assert after["steps"] == before["steps"]
     assert {k: v for k, v in after.items() if k != "host_stage_ns"} == \
         {k: v for k, v in before.items() if k != "host_stage_ns"}
-
-
-def _launch_shapes():
-    """What K2's and K4's wrappers record for a small 'kernel program'."""
-    for _ in range(2):
-        K2._count("forward", 8, 64, 512, 128, 256)
-    K2._count("input_grad", 8, 64, 512, 256, 128)
-    K4._count("forward", torch.empty(8, 128, 1024, 64, device="meta"))
-    K4._count("backward", torch.empty(8, 64, 512, 128, device="meta"))
-    return "outputs"
-
-
-def test_graph_shape_bookkeeping(simulated):
-    keys = set(launch_counts())
-    assert keys == {"conv3x3_forward", "conv3x3_input_grad",
-                    "conv3x3_recompute", "dblock", "dblock_recompute",
-                    "dblock_backward", "dblock_backward_plain",
-                    "synthesis_spectrum", "gen_epilogue_forward",
-                    "gen_epilogue_backward", "gen_epilogue_recompute"}
-    one = {("forward", 8, 64, 512, 128, 256): 2,
-           ("input_grad", 8, 64, 512, 256, 128): 1}
-    k4 = {("forward", 8, 128, 1024, 64): 1, ("backward", 8, 64, 512, 128): 1}
-    before, k4_before = launch_shapes(), gen_epilogue_shapes()
-    g = graphs.Graph(_launch_shapes, "cpu", warmup=2)
-    captured, k4_captured = launch_shapes(), gen_epilogue_shapes()
-    assert _delta(captured, before) == {k: 2 * v for k, v in one.items()}
-    assert _delta(k4_captured, k4_before) == {k: 2 * v for k, v in k4.items()}
-    assert g.shapes == one and g.epilogue_shapes == k4
-    for _ in range(3):
-        g.replay()
-    assert _delta(launch_shapes(), captured) == {k: 3 * v
-                                                 for k, v in one.items()}
-    assert _delta(gen_epilogue_shapes(), k4_captured) == {
-        k: 3 * v for k, v in k4.items()}
-    assert set(launch_counts()) == keys
-    simulated["fail"] = "operation not permitted when stream is capturing"
-    mark, k4_mark = launch_shapes(), gen_epilogue_shapes()
-    with pytest.raises(RuntimeError, match="capturing"):
-        graphs.Graph(_launch_shapes, "cpu", warmup=0)
-    assert launch_shapes() == mark and gen_epilogue_shapes() == k4_mark

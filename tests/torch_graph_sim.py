@@ -14,38 +14,13 @@ function that froze a host value at its capture shows it there. With
 
 import torch
 
-from gansynth_tpu_torch.kernels import conv as K2
-from gansynth_tpu_torch.kernels import dblock as K3
-from gansynth_tpu_torch.kernels import gen_epilogue as K4
-from gansynth_tpu_torch.kernels import (
-    gen_epilogue_shapes,
-    launch_counts,
-    launch_shapes,
-)
-from gansynth_tpu_torch.kernels import synthesis as K1
+from gansynth_tpu_torch.kernels import add, record
 from gansynth_tpu_torch.utils import graphs
 
 
-def _set_count(name, value):
-    if name.startswith("conv3x3_"):
-        K2.conv3x3_same.launches[name[len("conv3x3_"):]] = value
-    elif name.startswith("gen_epilogue_"):
-        K4.gen_epilogue.launches[name[len("gen_epilogue_"):]] = value
-    elif name == "dblock":
-        K3.fused_dblock.launches = value
-    elif name == "dblock_recompute":
-        K3.fused_dblock.recompute_launches = value
-    elif name == "dblock_backward":
-        K3.fused_dblock.backwards["kernel"] = value
-    elif name == "dblock_backward_plain":
-        K3.fused_dblock.backwards["plain"] = value
-    else:
-        K1.synthesis_spectrum.launches = value
-
-
 class FakeGraph:
-    """A captured ``fn``: a replay reruns it with its launches' counting,
-    by wrapper and by K2's and K4's shape, left to the bookkeeping (``replays``
+    """A captured ``fn``: a replay reruns it with its launches' counting
+    left to the bookkeeping (the record is put back as it was; ``replays``
     counts them) and copies what it returns into the capture's outputs (a
     tensor or a tuple of them)."""
 
@@ -54,15 +29,9 @@ class FakeGraph:
 
     def replay(self):
         self.replays += 1
-        saved, shapes = launch_counts(), launch_shapes()
-        epilogue_shapes = gen_epilogue_shapes()
+        saved = record()
         out = self.fn()
-        for k, v in saved.items():   # a replay's counts are the Graph's
-            _set_count(k, v)
-        for record, kept in ((K2.conv3x3_same.shapes, shapes),
-                             (K4.gen_epilogue.shapes, epilogue_shapes)):
-            record.clear()
-            record.update(kept)
+        add(graphs._delta(saved, record()))   # the Graph adds a replay's
         if torch.is_tensor(self.outputs):
             self.outputs.copy_(out)
         elif isinstance(self.outputs, tuple):
