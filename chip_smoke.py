@@ -9,9 +9,9 @@ Phases, each printing one line with its elapsed seconds (any failure
 raises, so the exit code is non-zero):
 
 1. the card's ``name, power.limit`` line from ``nvidia-smi``;
-2. build the four kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
-   critic block, K4 generator epilogue), K3's backward kernels and the
-   training step's mark kernels with plain ``nvcc``, one process each,
+2. build the five kernels (K1 synthesis spectrum, K2 3x3 conv, K3 fused
+   critic block, K4 generator epilogue, K5 the critic's fromRGB), K3's
+   backward kernels and the training step's mark kernels with plain ``nvcc``, one process each,
    all at once, and print their ``ptxas`` lines;
 3. hold K1 to its plain PyTorch version on the card at every batch rung
    of the service, at the training loop's sample batch (``SAMPLE_BATCH``)
@@ -215,6 +215,17 @@ raises, so the exit code is non-zero):
     step's backwards by route (``K3_BACKWARD_PER_STEP``: 4 kernel, 1
     plain) and its ``dblock_grad_`` kernels by name. One
     ``{"k3_backward_check": ...}`` line.
+19. K5 (``kernels/csrc/from_rgb.cu``), run after phase 18
+    (``check_from_rgb_kernel``): at the step's two fromRGB shapes
+    (``K5_SHAPES``) in bf16 and float32 the forward against the chain to
+    the bit, contract (A, B, C) and expand against their plain versions
+    within 1 ulp and 1e-5 of the terms' magnitudes, contract's first
+    order against autograd of the chain (reported); in bf16 the forward,
+    contract with and without A, and expand timed back to back and
+    replayed from a CUDA graph beside the chain and the byte bound, and a
+    step's calls summed. Phases 8 and 15 count a step's calls
+    (``K5_PER_STEP``: 8 forwards, 12 contracts, 2 expands) and its
+    ``from_rgb_`` kernels by name (34). One ``{"k5_check": ...}`` line.
 
 A replayed graph launches nothing through the wrappers: the launch
 record adds what the capture counted at each replay (``kernels.add``).
@@ -251,7 +262,7 @@ BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
 KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "dblock_grad",
-           "gen_epilogue", "step_marks")
+           "gen_epilogue", "from_rgb", "step_marks")
 # (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
 # the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
 # conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
@@ -526,9 +537,10 @@ def launched_since(before, *names):
 
 
 def _demangle(mangled: str) -> str:
-    """The function name (with its integer template arguments, if any) of
-    an Itanium-mangled kernel name such as ``_ZN..23conv3x3_nhwc_bf16_wgmma
-    ILi256EEEv..``: the last length-prefixed component of its name."""
+    """The function name (with its integer and bool template arguments, if
+    any; a bool as 0 or 1) of an Itanium-mangled kernel name such as
+    ``_ZN..23conv3x3_nhwc_bf16_wgmmaILi256EEEv..``: the last length-prefixed
+    component of its name."""
     import re
 
     rest = mangled[3:] if mangled.startswith("_ZN") else mangled[2:]
@@ -540,10 +552,10 @@ def _demangle(mangled: str) -> str:
         n = int(m.group(1))
         name = rest[m.end():m.end() + n]
         rest = rest[m.end() + n:]
-    t = re.match(r"I((?:Li\d+E)+)E", rest)
+    t = re.match(r"I((?:L[ib]\d+E)+)E", rest)
     if not t:
         return name
-    return f"{name}<{', '.join(re.findall(r'Li(\d+)E', t.group(1)))}>"
+    return f"{name}<{', '.join(re.findall(r'L[ib](\d+)E', t.group(1)))}>"
 
 
 def ptxas_report(log: str):
@@ -1044,6 +1056,143 @@ def check_dblock_backward(device, resources):
     return result
 
 
+# K5's shapes in the stage-6 step, (B, H, W, C_in, C_out): from_rgb[6] at
+# the critic's input and the fade-in skip's from_rgb[5] at half of it.
+K5_SHAPES = [(8, 128, 1024, 2, 64), (8, 64, 512, 2, 128)]
+# K5's calls a stage-6 step, two sites each: 4 forwards (real, fake, the
+# interpolates, the generator update's fake); 6 contracts (the critic
+# loss's backward through real, fake and the interpolates' forward, the
+# penalty's create_graph call, the weight term of its double backward,
+# the generator update's backward); 1 expand (the double backward's
+# gradient of g). Every contract takes a weight gradient, so each also
+# launches its partials' sum: by name 34 from_rgb_ kernels a step.
+K5_PER_STEP = {"from_rgb_forward": 8, "from_rgb_contract": 12,
+               "from_rgb_expand": 2}
+K5_TRACED_PER_STEP = 8 + 2 * 12 + 2
+# Each site's contracts a step: 3 with A, B and C (the interpolates'
+# two, the generator update's), 3 with B and C or B alone.
+K5_CONTRACTS = {"contract": 3, "contract_weights": 3}
+
+
+def check_from_rgb_kernel(device, resources):
+    """Phase 19: K5 at the stage-6 step's two fromRGB shapes in bf16 and
+    float32. The forward against the chain to the bit; contract (A, B, C)
+    and expand (all three terms, and dx alone) against their plain
+    versions within 1 ulp of the type and 1e-5 of the sum of the terms'
+    magnitudes (float32 sums in another order); contract's first order
+    against autograd of the chain (relative L2, reported). In bf16 the
+    forward, contract with and without A, and expand timed back to back
+    (``ms``) and replayed from a CUDA graph (``graph_ms``), beside the
+    chain's forward and its autograd backward (``plain_ms``) and the byte
+    bound at the HBM rate; a step's calls summed."""
+    import torch
+
+    from gansynth_tpu_torch.kernels import from_rgb as K5
+    from gansynth_tpu_torch.utils.kernel_ab import graph_ms
+
+    result = {"shapes": [], "resources": resources}
+    step = dict.fromkeys(("ms", "graph_ms", "bound_ms"), 0.0)
+    for i, (b, h, w, cin, cout) in enumerate(K5_SHAPES):
+        row = {"shape": [b, h, w, cin, cout]}
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[-1]
+            gen = torch.Generator(device=device).manual_seed(200 + i)
+            x = (2 * torch.rand((b, h, w, cin), generator=gen,
+                                device=device) - 1).to(dtype)
+            wt = torch.randn((cout, cin), generator=gen,
+                             device=device).to(dtype)
+            bias = (0.1 * torch.randn(cout, generator=gen,
+                                      device=device)).to(dtype)
+            g = torch.randn((b, h, w, cout), generator=gen,
+                            device=device).to(dtype)
+            dx = torch.randn((b, h, w, cin), generator=gen,
+                             device=device).to(dtype)
+            dw = torch.randn((cout, cin), generator=gen,
+                             device=device).to(dtype)
+            db = torch.randn(cout, generator=gen, device=device).to(dtype)
+            y = K5._launch_forward(x, wt, bias, 0.2)
+            torch.cuda.synchronize()
+            if not torch.equal(y, K5.from_rgb_plain(x, wt, bias, 0.2)):
+                raise AssertionError(f"K5 {name} {row['shape']}: the forward "
+                                     "is not the chain's")
+            got = K5._launch_contract(g, x, wt, x, wt, bias, 0.2,
+                                      (True, True, True))
+            want = K5.from_rgb_contract_plain(g, x, wt, x, wt, bias, 0.2)
+            gz = K5._masked(g, x, wt, bias, 0.2).float().abs()
+            xa = x.float().abs().reshape(-1, cin)
+            slack = (gz @ wt.float().abs(),
+                     gz.reshape(-1, cout).T @ xa,
+                     gz.reshape(-1, cout).sum(0))
+            errs = {}
+            for part, a, p, s in zip(("A", "B", "C"), got, want, slack):
+                errs[part] = within_ulps(a, p, 1, 1e-5 * s,
+                                         f"K5 {name} contract {part}")
+            xr = x.clone().requires_grad_()
+            wr = wt.clone().requires_grad_()
+            br = bias.clone().requires_grad_()
+            yp = K5.from_rgb_plain(xr, wr, br, 0.2)
+            chain = torch.autograd.grad(yp, (xr, wr, br), g,
+                                        retain_graph=True)
+            errs["vs_chain_rel_l2"] = [
+                float((a.double() - c.double()).norm() / c.double().norm())
+                for a, c in zip(got, chain)]
+            for part, args in (("expand", (dx, dw, db, x, wt)),
+                               ("expand_dx", (dx, None, None, None, wt))):
+                e = K5._launch_expand(*args, x, wt, bias, 0.2)
+                p = K5.from_rgb_expand_plain(*args, x, wt, bias, 0.2)
+                terms = dx.float().abs() @ wt.float().abs().T
+                if args[1] is not None:
+                    terms = (terms + xa.reshape(x.shape) @ dw.float().abs().T
+                             + db.float().abs())
+                errs[part] = within_ulps(e, p, 1, 1e-5 * terms,
+                                         f"K5 {name} {part}")
+            row[name] = errs
+            if dtype == torch.bfloat16:
+                n_x, n_y = 2.0 * x.numel(), 2.0 * y.numel()
+                sums = 8.0 * K5._blocks(b * h * w, cout, dtype) \
+                    * cout * (cin + 1)
+                forms = {
+                    "forward": (n_x + n_y, lambda: K5._launch_forward(
+                        x, wt, bias, 0.2), lambda: K5.from_rgb_plain(
+                            x, wt, bias, 0.2)),
+                    "contract": (n_y + 2 * n_x + sums,
+                                 lambda: K5._launch_contract(
+                                     g, x, wt, x, wt, bias, 0.2,
+                                     (True, True, True)),
+                                 lambda: torch.autograd.grad(
+                                     yp, (xr, wr, br), g,
+                                     retain_graph=True)),
+                    "contract_weights": (n_y + n_x + sums,
+                                         lambda: K5._launch_contract(
+                                             g, x, wt, x, wt, bias, 0.2,
+                                             (False, True, True)),
+                                         lambda: torch.autograd.grad(
+                                             yp, (wr, br), g,
+                                             retain_graph=True)),
+                    "expand": (2 * n_x + n_y, lambda: K5._launch_expand(
+                        dx, None, None, None, wt, x, wt, bias, 0.2), None)}
+                for part, (nbytes, kernel, plain) in forms.items():
+                    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+                    t = {"ms": cuda_ms(kernel, iters=20),
+                         "graph_ms": graph_ms(kernel),
+                         "bound_ms": bound_ms}
+                    t["fraction_of_bound"] = bound_ms / t["graph_ms"]
+                    if plain is not None:
+                        t["plain_ms"] = cuda_ms(plain, iters=20)
+                    row[part] = t
+                    calls = {"forward": 4, "expand": 1}.get(
+                        part, K5_CONTRACTS.get(part))
+                    for k in step:
+                        step[k] += calls * t[k]
+            del x, wt, bias, g, dx, dw, db, y, got, want, xr, wr, br, yp
+            torch.cuda.empty_cache()
+        result["shapes"].append(row)
+    result["step"] = {**step, "fraction_of_bound": step["bound_ms"]
+                      / step["graph_ms"]}
+    print(json.dumps({"k5_check": result}), flush=True)
+    return result
+
+
 def training_config(dtype=None, kernels="pallas"):
     """The flagship's config after the release step, with the kernels
     switched on (or off) and, optionally, another compute type."""
@@ -1111,13 +1260,15 @@ def train_steps(device):
     launches = launched_since(
         before, "conv3x3_forward", "conv3x3_input_grad", "dblock",
         "dblock_backward", "dblock_backward_plain", "gen_epilogue_forward",
-        "gen_epilogue_backward")
+        "gen_epilogue_backward", *K5_PER_STEP)
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         raise AssertionError(f"the training step never launched {bad}")
-    if any(launches[k] != n * TRAIN_STEPS for k, n in K4_PER_STEP.items()):
-        raise AssertionError(f"K4 launches over {TRAIN_STEPS} steps: "
-                             f"{launches}, want {K4_PER_STEP} a step")
+    for name, per_step in (("K4", K4_PER_STEP), ("K5", K5_PER_STEP)):
+        if any(launches[k] != n * TRAIN_STEPS for k, n in per_step.items()):
+            raise AssertionError(f"{name} launches over {TRAIN_STEPS} "
+                                 f"steps: {launches}, want {per_step} a "
+                                 "step")
     if any(launches[k] != n * TRAIN_STEPS
            for k, n in K3_BACKWARD_PER_STEP.items()):
         raise AssertionError(f"K3 backwards over {TRAIN_STEPS} steps: "
@@ -1134,7 +1285,11 @@ def train_steps(device):
                                 + 2 * launches["gen_epilogue_backward"])
                / TRAIN_STEPS,
                # the spread, the mask kernel and their two bias sums
-               "dblock_grad": 4 * launches["dblock_backward"] / TRAIN_STEPS}
+               "dblock_grad": 4 * launches["dblock_backward"] / TRAIN_STEPS,
+               # each contract with its partials' sum
+               "from_rgb": (launches["from_rgb_forward"]
+                            + 2 * launches["from_rgb_contract"]
+                            + launches["from_rgb_expand"]) / TRAIN_STEPS}
     if any(traced[k] != v for k, v in counted.items()):
         raise AssertionError(f"kernels a step: traced {traced}, counted "
                              f"{counted}")
@@ -1983,7 +2138,8 @@ DP_TRACED = 2  # steps of each form under torch.profiler
 STEP_KERNELS = ("conv3x3_forward", "conv3x3_input_grad", "conv3x3_recompute",
                 "dblock", "dblock_recompute", "dblock_backward",
                 "dblock_backward_plain", "gen_epilogue_forward",
-                "gen_epilogue_backward", "gen_epilogue_recompute")
+                "gen_epilogue_backward", "gen_epilogue_recompute",
+                "from_rgb_forward", "from_rgb_contract", "from_rgb_expand")
 
 
 def dp_step_timing(device, mesh):
@@ -2487,13 +2643,15 @@ def _graph_training(device):
     if (per_step["graph"] != per_step["eager"] or k2 != GRAPH_K2_PER_STEP
             or launches["dblock"] != GRAPH_K3_PER_STEP
             or any(launches[k] != n for k, n in K4_PER_STEP.items())
+            or any(launches[k] != n for k, n in K5_PER_STEP.items())
             or any(launches[k] != n
                    for k, n in K3_BACKWARD_PER_STEP.items())):
         raise AssertionError(f"kernel launches a step: {per_step}")
     out["launches_per_step"] = launches
     want = {"conv3x3": GRAPH_K2_PER_STEP, "dblock": GRAPH_K3_PER_STEP,
             "gen_epilogue": K4_TRACED_PER_STEP,
-            "dblock_grad": K3_GRAD_TRACED_PER_STEP}
+            "dblock_grad": K3_GRAD_TRACED_PER_STEP,
+            "from_rgb": K5_TRACED_PER_STEP}
     for kind in ("eager", "graph"):
         ms = times[kind]["ms"]
         out[kind] = {
@@ -2861,6 +3019,17 @@ def main() -> int:
           f"{k3b_bf16['backward_plain']['graph_ms']:.4f} ms ({card})")
 
     t = time.perf_counter()
+    k5 = check_from_rgb_kernel(device, resources["from_rgb"])
+    k5_fwd, k5_con = (k5["shapes"][0][k] for k in ("forward", "contract"))
+    phase("K5 vs plain", t, "forward equal to the chain to the bit, "
+          "contract and expand within 1 ulp of their plain versions; "
+          f"{K5_SHAPES[0]} bf16 forward {k5_fwd['graph_ms']:.4f} ms "
+          f"({k5_fwd['fraction_of_bound']:.3f} of its bound), contract "
+          f"{k5_con['graph_ms']:.4f} ms ({k5_con['fraction_of_bound']:.3f}); "
+          f"a step's calls {k5['step']['graph_ms']:.4f} ms against a bound "
+          f"of {k5['step']['bound_ms']:.4f} ms (bytes) ({card})")
+
+    t = time.perf_counter()
     generator, step, stage = load_ema_generator(
         os.path.join(FLAGSHIP, "ema.npz"), config.model, device)
     rms, err, snr = render_flagship(device, config, generator, stage)
@@ -3183,6 +3352,25 @@ def main() -> int:
         "bound_by": "bytes",
         "shapes": k4["shapes"],
         "resources": resources["gen_epilogue"],
+    }, {
+        "name": "from_rgb",
+        "route": "cuda",
+        "source": "gansynth_tpu_torch/kernels/csrc/from_rgb.cu",
+        "replaces": "gansynth_tpu/models/layers.py EqualizedConv's fan-in "
+                    "<= 4 broadcast path, its bias and the LeakyReLU after "
+                    "it (the critic's fromRGB), which XLA fuses",
+        "launches": {k: train["launches"][k] for k in K5_PER_STEP},
+        "launches_traced_per_step":
+            train["launches_traced_per_step"]["from_rgb"],
+        "graph_launches_per_replay": {
+            k: tr["launches_per_step"][k] for k in K5_PER_STEP},
+        "graph_launches_traced_per_replay":
+            tr["graph"]["kernel_launches"]["from_rgb"],
+        **{k: k5["step"][k] for k in ("ms", "graph_ms", "bound_ms",
+                                      "fraction_of_bound")},
+        "bound_by": "bytes",
+        "shapes": k5["shapes"],
+        "resources": resources["from_rgb"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
 

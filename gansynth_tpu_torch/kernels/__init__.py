@@ -37,6 +37,10 @@ _NAMES = {
     ("gen_epilogue", "forward"): "gen_epilogue_forward",
     ("gen_epilogue", "backward"): "gen_epilogue_backward",
     ("gen_epilogue", "recompute"): "gen_epilogue_recompute",
+    ("from_rgb", "forward"): "from_rgb_forward",
+    ("from_rgb", "contract"): "from_rgb_contract",
+    ("from_rgb", "expand"): "from_rgb_expand",
+    ("from_rgb", "recompute"): "from_rgb_recompute",
 }
 
 
@@ -57,11 +61,12 @@ def is_recomputing() -> bool:
 
 def count(kernel: str, role: str, *shape: int) -> None:
     """One launch of ``kernel`` (``"conv3x3"``, ``"dblock"``,
-    ``"synthesis_spectrum"``, ``"gen_epilogue"``) in ``role``
-    (``"forward"``, ``"input_grad"``, ``"backward"``,
-    ``"backward_plain"``; ``"recompute"`` inside :func:`recomputing`) at
-    ``shape``: K2 ``(B, H, W, C_in, C_out)``, K3 ``(B, H, W, C1)``, K4
-    ``(B, H, W, C)``, K1 ``(B,)``."""
+    ``"synthesis_spectrum"``, ``"gen_epilogue"``, ``"from_rgb"``) in
+    ``role`` (``"forward"``, ``"input_grad"``, ``"backward"``,
+    ``"backward_plain"``, ``"contract"``, ``"expand"``; ``"recompute"``
+    inside :func:`recomputing`) at ``shape``: K2 ``(B, H, W, C_in,
+    C_out)``, K3 ``(B, H, W, C1)``, K4 ``(B, H, W, C)``, K5 ``(B, H, W,
+    C_out)``, K1 ``(B,)``."""
     key = (kernel, "recompute" if is_recomputing() else role, *shape)
     with _LOCK:
         _RECORD[key] += 1
@@ -91,9 +96,11 @@ def launch_counts() -> Dict[str, int]:
     ``dblock_recompute``, ``dblock_backward`` (K3's backwards through its
     kernels), ``dblock_backward_plain`` (through the plain adjoints, on a
     card), ``synthesis_spectrum``, ``gen_epilogue_forward``,
-    ``gen_epilogue_backward``, ``gen_epilogue_recompute``; a launch that
-    none of them names (K1's inside :func:`recomputing`) under
-    ``<kernel>_<role>``."""
+    ``gen_epilogue_backward``, ``gen_epilogue_recompute``,
+    ``from_rgb_forward``, ``from_rgb_contract``, ``from_rgb_expand``,
+    ``from_rgb_recompute`` (K5's calls, a contract with its partial sums
+    one); a launch that none of them names (K1's inside
+    :func:`recomputing`) under ``<kernel>_<role>``."""
     counts = dict.fromkeys(_NAMES.values(), 0)
     for (kernel, role, *_), n in record().items():
         name = _NAMES.get((kernel, role), f"{kernel}_{role}")

@@ -1,7 +1,8 @@
 """Progressive critic with an auxiliary pitch head
 (``gansynth_tpu/models/discriminator.py``).
 
-fromRGB at the input resolution, blocks ``stage..1`` (two 3x3 eq-LR convs
+fromRGB at the input resolution (with its LeakyReLU, K5 on a card:
+``EqualizedConv.lrelu``), blocks ``stage..1`` (two 3x3 eq-LR convs
 and a 2x2 average pool each, down to the 2 x 16 base grid), minibatch
 stddev, a final conv and dense trunk, then two heads: a scalar WGAN critic
 score and 61-way pitch logits. The heads take no ``compute_dtype`` and run
@@ -127,14 +128,14 @@ class Discriminator(nn.Module):
             raise ValueError(f"stage {stage} expects {expected} images, got "
                              f"{tuple(image.shape[1:3])}")
         slope = cfg.leaky_relu_slope
-        x = leaky_relu(self.from_rgb[stage](image), slope)
+        x = self.from_rgb[stage].lrelu(image, slope)
         remat = cfg.remat and torch.is_grad_enabled()
         for i in range(stage, 0, -1):
             block = self.blocks[str(i)]
             x = remat_call(block, x) if remat else block(x)
             if i == stage:
-                skip = leaky_relu(
-                    self.from_rgb[stage - 1](downsample_avg(image, 2)), slope)
+                skip = self.from_rgb[stage - 1].lrelu(
+                    downsample_avg(image, 2), slope)
                 x = lerp(skip, x, alpha)
         x = minibatch_stddev(x, cfg.mbstd_group_size, cfg.mbstd_eps,
                              cfg.mbstd_replicas, mesh)

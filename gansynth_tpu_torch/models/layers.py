@@ -23,6 +23,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from gansynth_tpu_torch.kernels.conv import conv3x3_eligible, conv3x3_same
+from gansynth_tpu_torch.kernels.from_rgb import (
+    from_rgb_eligible,
+    from_rgb_lrelu,
+)
 from gansynth_tpu_torch.utils.device import dtype_of, slope_in
 
 
@@ -126,6 +130,20 @@ class EqualizedConv(nn.Module):
         if self.bias is not None:
             y = y + self.bias.to(self.compute_dtype)
         return y
+
+    def lrelu(self, x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+        """``leaky_relu(self(x), slope)``. A biased 1x1 conv of fan-in at
+        most 4 (the critic's fromRGB) whose widths pass
+        ``from_rgb_eligible`` runs as ``kernels.from_rgb.from_rgb_lrelu``
+        with the same scaled weight and bias: K5 on a card, the same
+        chain on the CPU."""
+        cdt, c_in = self.compute_dtype, x.shape[-1]
+        if self.bias is None or not from_rgb_eligible(
+                self.kernel_size, c_in, self.weight.shape[0], cdt):
+            return leaky_relu(self(x), slope)
+        w = (self.weight * he_scale(c_in, self.gain)).to(cdt)
+        return from_rgb_lrelu(x.to(cdt), w[:, :, 0, 0], self.bias.to(cdt),
+                              slope)
 
 
 def _smear_kernel_2x(kernel: torch.Tensor) -> torch.Tensor:

@@ -220,11 +220,12 @@ def graph_vs_eager(config, generator, stage: int, batch: int,
 # K4 (K4's forward, backward and the backward's bias sum: a backward that
 # takes the bias's gradient runs two of them), and K3's backward kernels
 # (the spread, the mask kernel and their bias sums: up to four a
-# backward), apart from K3's forward, whose name its roofline counts.
+# backward), apart from K3's forward, whose name its roofline counts; K5
+# (its forward, contract, expand, and a contract's partials' sum).
 PORT_KERNELS = {"synthesis_spectrum": "synthesis_spectrum_gather",
                 "conv3x3": "conv3x3_nhwc_", "dblock": "dblock_nhwc_",
                 "gen_epilogue": "gen_epilogue_",
-                "dblock_grad": "dblock_grad_"}
+                "dblock_grad": "dblock_grad_", "from_rgb": "from_rgb_"}
 
 
 def port_kernel(name: str):

@@ -19,7 +19,10 @@ held to their plain versions (cuDNN, TF32 off) at the bars of
 ``tests/test_pallas_conv.py`` and ``tests/test_pallas_dblock.py`` in f32,
 and within 3e-2 of the output's scale in bf16 (both sides accumulate in
 f32 and round once to bf16, whose ulp is 2**-8 of the value). K4 is held
-to the chain it replaces in ulps of the result's type (see its test).
+to the chain it replaces in ulps of the result's type (see its test). K5's
+forward is held to the chain to the bit, its contract and expand kernels
+to their plain versions in ulps, and the critic's penalty gradient
+through it to the critic's float64 one (``ROUTE_MARGIN``).
 """
 
 import dataclasses
@@ -1271,4 +1274,271 @@ def test_a_step_launches_k4_at_every_generator_epilogue(cuda_device):
              if e.device_type == torch.autograd.DeviceType.CUDA]
     for part, n in (("gen_epilogue_fwd_bf16", 28), ("gen_epilogue_bwd_bf16", 14),
                     ("gen_epilogue_bias_sum_bf16", 14)):
+        assert sum(part in name for name in names) == 3 * n, part
+
+
+# K5 at the stage-6 step's two fromRGB shapes, (B, H, W, C_in, C_out):
+# from_rgb[6] at the critic's input, the fade-in skip's from_rgb[5].
+K5_SHAPES = [(8, 128, 1024, 2, 64), (8, 64, 512, 2, 128)]
+
+
+def _k5_inputs(shape, dtype, device, seed=30):
+    """x, w, b, a gradient g of y and a dx, as the critic gives them: the
+    image in [-1, 1], the scaled weight and the bias rounded to the
+    type."""
+    b, h, w, cin, cout = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (2 * torch.rand((b, h, w, cin), generator=gen, device=device)
+         - 1).to(dtype)
+    wt = torch.randn((cout, cin), generator=gen, device=device).to(dtype)
+    bias = (0.1 * torch.randn(cout, generator=gen, device=device)).to(dtype)
+    g = torch.randn((b, h, w, cout), generator=gen, device=device).to(dtype)
+    dx = torch.randn((b, h, w, cin), generator=gen, device=device).to(dtype)
+    return x, wt, bias, g, dx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_from_rgb_forward_is_the_chain_bit_for_bit(cuda_device, dtype,
+                                                   shape):
+    """K5's forward, through the layer (``EqualizedConv.lrelu``) and
+    alone, equals the chain's ops on the card bit for bit, one launch
+    each."""
+    from gansynth_tpu_torch.kernels import from_rgb as K5
+    from gansynth_tpu_torch.models.layers import EqualizedConv, leaky_relu
+
+    x, wt, bias, _, _ = _k5_inputs(shape, dtype, cuda_device)
+    before = launch_counts()
+    y = K5.from_rgb_lrelu(x, wt, bias, 0.2)
+    torch.cuda.synchronize()
+    assert _since(before)["from_rgb_forward"] == 1
+    assert torch.equal(y, K5.from_rgb_plain(x, wt, bias, 0.2))
+    name = str(dtype).split(".")[-1]
+    conv = EqualizedConv(shape[3], shape[4], kernel_size=(1, 1),
+                         compute_dtype=name).to(cuda_device)
+    with torch.no_grad():
+        conv.bias.copy_(bias.float())
+    image = x.float() + 0.001   # float32, as the critic's interpolates
+    before = launch_counts()
+    y = conv.lrelu(image, 0.2)
+    torch.cuda.synchronize()
+    assert _since(before)["from_rgb_forward"] == 1
+    assert torch.equal(y, leaky_relu(conv(image), 0.2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", K5_SHAPES)
+def test_from_rgb_contract_and_expand_match_plain(cuda_device, dtype,
+                                                  shape):
+    """contract's (A, B, C) and expand (its three terms, and dx alone)
+    against their plain versions (``from_rgb_contract_plain``,
+    ``from_rgb_expand_plain``: the same mask, float32 sums in another
+    order) within 1 ulp of the type and 1e-5 of the sum of the terms'
+    magnitudes (expand, where the mask scales its sum, also by the slope
+    times the sum's ulp and one ulp of the product's rounding); without
+    A, B or C the same others."""
+    from gansynth_tpu_torch.kernels import from_rgb as K5
+
+    x, wt, bias, g, dx = _k5_inputs(shape, dtype, cuda_device)
+    cout, cin = wt.shape
+    got = K5._contract(g, x, wt, x, wt, bias, 0.2, (True, True, True))
+    want = K5.from_rgb_contract_plain(g, x, wt, x, wt, bias, 0.2)
+    gz = K5._masked(g, x, wt, bias, 0.2).float().abs()
+    slack = (gz @ wt.float().abs(),
+             gz.reshape(-1, cout).T @ x.float().abs().reshape(-1, cin),
+             gz.reshape(-1, cout).sum(0))
+    for a, p, s in zip(got, want, slack):
+        assert a.dtype == dtype and a.shape == p.shape
+        _within_ulps(a, p, 1, 1e-5 * s)
+    a, gw, gb = K5._contract(g, x, wt, x, wt, bias, 0.2, (False, True, True))
+    assert a is None and torch.equal(gw, got[1]) and torch.equal(gb, got[2])
+    a, gw, gb = K5._contract(g, None, wt, x, wt, bias, 0.2,
+                             (True, False, False))
+    assert gw is None and gb is None and torch.equal(a, got[0])
+    gen = torch.Generator(device=cuda_device).manual_seed(31)
+    dw = torch.randn((cout, cin), generator=gen, device=cuda_device).to(dtype)
+    db = torch.randn(cout, generator=gen, device=cuda_device).to(dtype)
+    x1 = torch.randn(x.shape, generator=gen, device=cuda_device).to(dtype)
+    passed = K5._preact(x, wt, bias) > 0
+    for args in ((dx, dw, db, x1, wt), (dx, None, None, None, wt)):
+        e = K5._expand(*args, x, wt, bias, 0.2)
+        p = K5.from_rgb_expand_plain(*args, x, wt, bias, 0.2)
+        terms = dx.float().abs() @ wt.float().abs().T
+        if args[1] is not None:
+            terms = terms + x1.float().abs() @ dw.float().abs().T \
+                + db.float().abs()
+        # t within 1 ulp; where the mask scales it, round(t * slope)
+        # differs by the slope times t's ulp and one ulp of its own
+        t = torch.where(passed, p.float(), p.float() / slope_in(dtype, 0.2))
+        scaled = torch.where(passed, 0.0, 0.2 * _ulp(t, dtype)
+                             + _ulp(p, dtype))
+        _within_ulps(e, p, 1, 1e-5 * terms + scaled)
+
+
+def _penalty_grads(critic, x, stage=6):
+    """The gradient of WGAN-GP's penalty at x for each of the critic's
+    parameters that it reaches, by name."""
+    from gansynth_tpu_torch.train import losses
+
+    x_hat = x.detach().requires_grad_()
+    gx, = torch.autograd.grad(critic(x_hat, stage, 1.0)[0].sum(), x_hat,
+                              create_graph=True)
+    params = dict(critic.named_parameters())
+    penalty = losses.penalty_from_grads(
+        gx.to(torch.promote_types(gx.dtype, torch.float32)))
+    grads = torch.autograd.grad(penalty, list(params.values()),
+                                allow_unused=True)
+    return {k: g for k, g in zip(params, grads) if g is not None}
+
+
+def _float64_twin(critic, slope):
+    """The critic in float64 at the same parameters: every layer's
+    compute type float64, the plain lowerings in place of K2 and K3 (K5
+    takes neither type nor them), the LeakyReLU's slope the bf16 one."""
+    import copy
+
+    twin = copy.deepcopy(critic).double()
+    twin.config = dataclasses.replace(twin.config, leaky_relu_slope=slope)
+    for m in twin.modules():
+        if hasattr(m, "compute_dtype"):
+            m.compute_dtype = torch.float64
+        if hasattr(m, "conv_kernel"):
+            m.conv_kernel = "xla"
+        if hasattr(m, "dblock_kernel"):
+            m.dblock_kernel = "xla"
+        if hasattr(m, "lrelu_slope"):
+            m.lrelu_slope = slope
+    return twin
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_from_rgb_penalty_gradients_meet_the_route_margin(cuda_device,
+                                                          dtype, monkeypatch):
+    """The flagship-width critic's full penalty gradient at stage 6 (batch
+    2, K2 and K3 on) through K5, whose create_graph call and double
+    backward run contract and expand, and through the chain, in the
+    type: each parameter's relative L2 error against the critic's float64
+    gradient is at most ROUTE_MARGIN times the chain route's, and where
+    that gradient is 0 (the fade-in skip's fromRGB at alpha 1) both
+    routes' are 0. The forwards are equal to the bit, so the routes
+    differ only in the fromRGB backwards."""
+    from gansynth_tpu_torch.kernels import from_rgb as K5
+    from gansynth_tpu_torch.models.discriminator import Discriminator
+    from gansynth_tpu_torch.utils.config import ModelConfig
+
+    config = ModelConfig(compute_dtype=dtype, conv_kernel="pallas",
+                         dblock_kernel="pallas")
+    critic = Discriminator(config, generator=torch.Generator().manual_seed(
+        33)).to(cuda_device)
+    with torch.no_grad():
+        for name, p in critic.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=torch.Generator(
+                    ).manual_seed(len(name))))
+    x = _image(2, cuda_device, 34)
+    before = launch_counts()
+    route = _penalty_grads(critic, x)
+    launched = _since(before)
+    assert (launched["from_rgb_forward"], launched["from_rgb_contract"],
+            launched["from_rgb_expand"]) == (2, 6, 2)
+    with monkeypatch.context() as m:
+        m.setattr(K5, "_on_card", lambda t: False)
+        before = launch_counts()
+        chain = _penalty_grads(critic, x)
+        assert _since(before)["from_rgb_forward"] == 0
+    truth = _penalty_grads(
+        _float64_twin(critic, slope_in(getattr(torch, dtype), 0.2)),
+        x.double())
+    assert route.keys() == chain.keys() == truth.keys()
+    assert {"from_rgb.6.weight", "from_rgb.5.bias"} <= route.keys()
+    for k, t in truth.items():
+        if float(t.norm()) == 0:
+            assert float(route[k].norm()) == float(chain[k].norm()) == 0, k
+            continue
+        err, err_chain = _rel_l2(route[k], t), _rel_l2(chain[k], t)
+        assert err <= ROUTE_MARGIN * err_chain, (
+            f"{k}: relative L2 error {err:.4e} > {ROUTE_MARGIN} * the "
+            f"chain's {err_chain:.4e}")
+
+
+@pytest.mark.gpu
+def test_from_rgb_graph_replay_equals_eager(cuda_device):
+    """K5's forward, contract (A, B and C, its partial sums added in a
+    fixed order, without atomics) and expand captured in a CUDA graph give
+    an eager run's bits at every replay; the capture's launches are taken
+    back and each replay adds them."""
+    from gansynth_tpu_torch.kernels import from_rgb as K5
+    from gansynth_tpu_torch.utils import graphs
+
+    shape = K5_SHAPES[0]
+    x, wt, bias, g, dx = _k5_inputs(shape, torch.bfloat16, cuda_device)
+
+    def run():
+        y = K5._forward(x, wt, bias, 0.2)
+        return (y, *K5._contract(g, x, wt, x, wt, bias, 0.2,
+                                 (True, True, True)),
+                K5._expand(dx, None, None, None, wt, x, wt, bias, 0.2))
+
+    want = run()
+    graph = graphs.Graph(run, cuda_device)
+    key = (*shape[:3], shape[4])
+    assert graph.launches == {("from_rgb", role, *key): 1
+                              for role in ("forward", "contract", "expand")}
+    before = launch_counts()
+    for _ in range(3):
+        got = graph.replay()
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert _since(before)["from_rgb_contract"] == 3
+
+
+@pytest.mark.gpu
+def test_a_step_launches_k5_at_both_fromrgbs(cuda_device):
+    """A 3-step cached superstep at the flagship's widths (stage 6, batch
+    2, bf16): every fromRGB call of a step runs through K5, none through
+    the chain: at each of the two shapes 4 forwards, 6 contracts and 1
+    expand a step (8, 12 and 2), eagerly and in each replay of the step's
+    graph, by the record and by name in a profiler trace of the replays
+    (each contract with its partials' sum: 34 from_rgb_ kernels a step)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import record
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+
+    config, state, waves, pitches = _flagship_width_state(cuda_device,
+                                                          False)
+    alphas = [1.0] * 3
+    keys = ("from_rgb_forward", "from_rgb_contract", "from_rgb_expand")
+    want = dict(zip(keys, (8, 12, 2)))
+    eager = make_cached_superstep(config, 6, 6, graphs=False)
+    before, rec = launch_counts(), record()
+    eager(copy.deepcopy(state), waves, pitches, alphas)
+    torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    per_shape = {k[1:]: (v - rec.get(k, 0)) / 3
+                 for k, v in record().items()
+                 if k[0] == "from_rgb" and v != rec.get(k, 0)}
+    assert per_shape == {(role, *shape): n
+                         for shape in ((2, 128, 1024, 64), (2, 64, 512, 128))
+                         for role, n in (("forward", 4), ("contract", 6),
+                                         ("expand", 1))}
+    graphed = make_cached_superstep(config, 6, 6)
+    graphed(state, waves, pitches, alphas)   # the capture
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        graphed(state, waves, pitches, alphas)
+        torch.cuda.synchronize()
+    assert {k: (launch_counts()[k] - before[k]) / 3 for k in keys} == want
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    for part, n in (("from_rgb_fwd_bf16", 8), ("from_rgb_contract_bf16", 12),
+                    ("from_rgb_sum_bf16", 12), ("from_rgb_expand_bf16", 2)):
         assert sum(part in name for name in names) == 3 * n, part

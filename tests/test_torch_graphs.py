@@ -40,8 +40,8 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
   (``kernels.count``, keyed by kernel, role and shape) is taken back at
   a capture and added at every replay, one delta, so its views
   (``launch_counts``, ``launch_shapes``, ``gen_epilogue_shapes``) count
-  the replays; ``launch_counts`` keeps its eleven names, the views their
-  keys, and threads that count at once lose no launch.
+  the replays; ``launch_counts`` keeps its fifteen names, the views their
+  keys (K5's launches in neither shape view), and threads that count at once lose no launch.
 """
 
 import os
@@ -271,7 +271,8 @@ NAMES = {"conv3x3_forward", "conv3x3_input_grad", "conv3x3_recompute",
          "dblock", "dblock_recompute", "dblock_backward",
          "dblock_backward_plain", "synthesis_spectrum",
          "gen_epilogue_forward", "gen_epilogue_backward",
-         "gen_epilogue_recompute"}
+         "gen_epilogue_recompute", "from_rgb_forward", "from_rgb_contract",
+         "from_rgb_expand", "from_rgb_recompute"}
 # case -> (program, a view of the record, the view's launches a call, the
 # record's launches a call)
 BOOKKEEPING = {
@@ -316,10 +317,11 @@ def test_graph_bookkeeping(simulated, case):
 
 def test_launch_record_contract():
     """``kernels.count`` files a launch under its role, or under
-    ``"recompute"`` inside ``recomputing()``, for each of the four
+    ``"recompute"`` inside ``recomputing()``, for each of the five
     kernels, and ``launch_counts`` names both; ``launch_counts`` has the
-    eleven names, and ``launch_shapes`` and ``gen_epilogue_shapes`` the
-    key tuples that the benchmark's readers take."""
+    fifteen names, and ``launch_shapes`` and ``gen_epilogue_shapes`` the
+    key tuples that the benchmark's readers take, K5's launches in
+    neither."""
     # kernel -> (shape, role, launch_counts' names of the role and of its
     # recompute)
     cases = {"conv3x3": ((8, 64, 512, 128, 256), "input_grad",
@@ -330,7 +332,9 @@ def test_launch_record_contract():
                                     "synthesis_spectrum_recompute"),
              "gen_epilogue": ((8, 128, 1024, 64), "backward",
                               "gen_epilogue_backward",
-                              "gen_epilogue_recompute")}
+                              "gen_epilogue_recompute"),
+             "from_rgb": ((8, 128, 1024, 64), "contract",
+                          "from_rgb_contract", "from_rgb_recompute")}
     saved = record()
     add({k: -v for k, v in saved.items()})   # from an empty record
     try:
@@ -537,7 +541,7 @@ def test_on_device_is_eager_off_a_card():
 def test_traced_kernel_names_map_to_the_port_kernels():
     """``profiling.port_kernel`` maps the device functions of
     ``kernels/csrc`` (as a trace names them: demangled, with template
-    arguments, or mangled) to K1/K2/K3/K4 and K3's backward kernels, and
+    arguments, or mangled) to K1/K2/K3/K4/K5 and K3's backward kernels, and
     nothing else to any: the step's mark kernels are none of them, and no
     backward kernel is K3's forward."""
     import re
@@ -562,6 +566,9 @@ def test_traced_kernel_names_map_to_the_port_kernels():
                         for t in ("bf16", "f32")},
                      **{f"dblock_grad_{fn}_{t}": "dblock_grad"
                         for fn in ("spread", "mask", "bias_sum")
+                        for t in ("bf16", "f32")},
+                     **{f"from_rgb_{fn}_{t}": "from_rgb"
+                        for fn in ("fwd", "contract", "expand", "sum")
                         for t in ("bf16", "f32")},
                      **{f"step_mark_{m}": None for m in (
                          "start", "frontend", "critic", "generator",
