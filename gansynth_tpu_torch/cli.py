@@ -25,6 +25,11 @@ Counterpart of ``gansynth_tpu/cli.py``. Ported subcommands:
 - ``validate-data`` the readiness gate of TFRecord files (schema,
                  distributions, decode rate, one superstep, roundtrip).
 
+A WaveGAN configuration (``model.architecture = "wavegan"``) runs
+``train --device-cache`` on one device and ``export-ema``; the spectral
+commands (``serve``, ``generate``, ``interpolate``, ``evaluate``,
+``export-model``) refuse it with a one-line error (exit 2).
+
 ``serve``, ``generate``, ``interpolate``, ``evaluate`` and
 ``export-model`` restore through one function, :func:`_restore_sampler`:
 the newest full checkpoint under ``checkpoints/`` when it is the port's,
@@ -64,7 +69,12 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from gansynth_tpu_torch.utils.config import Config, ModelConfig, TrainConfig
+from gansynth_tpu_torch.utils.config import (
+    Config,
+    ModelConfig,
+    TrainConfig,
+    as_dict,
+)
 
 _NO_TENSORFLOW = ("needs TensorFlow, which the port does not use; the port "
                   "reads TFRecords with its native reader (--ingest native, "
@@ -130,7 +140,7 @@ def _build_config(args) -> Config:
         with open(args.config) as f:
             config = config.with_overrides(json.load(f))
     if args.dump_config:
-        print(json.dumps(dataclasses.asdict(config), indent=2,
+        print(json.dumps(as_dict(config), indent=2,
                          sort_keys=True))
         raise SystemExit(0)
     return config
@@ -241,6 +251,12 @@ def cmd_train(args) -> int:
               file=sys.stderr)
         return 2
     config = _build_config(args)
+    if config.model.architecture == "wavegan" and (
+            not args.device_cache or args.data_parallel or args.multihost):
+        print("error: WaveGAN trains on one device from the device cache "
+              "(--device-cache, without --data-parallel or --multihost)",
+              file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     ckpt_dir = os.path.join(args.model_dir, "checkpoints")
     try:
@@ -282,7 +298,7 @@ def cmd_train(args) -> int:
     if lead:
         with open(os.path.join(args.model_dir, "train_config.json"),
                   "w") as f:
-            json.dump(dataclasses.asdict(config), f, indent=2,
+            json.dump(as_dict(config), f, indent=2,
                       sort_keys=True)
     files = list(args.data or [])
     if args.synthetic and not files:
@@ -444,6 +460,12 @@ def _restore_config(args, config: Config) -> Config:
     return run
 
 
+class SpectralOnly(ValueError):
+    """A spectral command (``serve``, ``generate``, ``interpolate``,
+    ``evaluate``, ``export-model``) asked of a WaveGAN run; ``main``
+    prints it on one line and exits 2."""
+
+
 def _restore_sampler(args, config: Config):
     """Restore a run's EMA generator and the sampler over it:
     ``(sampler, step, stage, config)`` (the reference's
@@ -473,6 +495,11 @@ def _restore_sampler(args, config: Config):
     from gansynth_tpu_torch.utils.device import resolve_device, set_precision
 
     config = _restore_config(args, config)
+    if config.model.architecture != "gansynth":
+        raise SpectralOnly(
+            f"{args.command} renders GANSynth's spectral notes; this run's "
+            f"model.architecture is {config.model.architecture!r} (WaveGAN "
+            "runs train and export-ema)")
     device = resolve_device(args.device)
     set_precision()
     npz = os.path.join(args.model_dir, "ema.npz")
@@ -1103,7 +1130,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     args = build_parser().parse_args(argv)
     args.argv = argv   # what a spawned data-parallel worker runs again
-    return args.fn(args)
+    try:
+        return args.fn(args)
+    except SpectralOnly as e:
+        print(f"error: {e}", file=sys.stderr)
+        return 2
 
 
 if __name__ == "__main__":

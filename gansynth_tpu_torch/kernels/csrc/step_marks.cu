@@ -9,20 +9,22 @@
 // runs at every replay, in stream order: it starts when the work before
 // it has finished. Each reads the device's nanosecond clock
 // (%globaltimer), adds now - last to its phase's total, and keeps now as
-// last; the end mark also counts the step. Nothing is read back between
+// last; the end mark also counts the step, the critic mark (one after
+// each critic update) the critic updates. Nothing is read back between
 // replays: the host copies the totals when it chooses. The kernel's name
 // carries the mark, so a profiler's trace places each boundary on the
 // trace's own clock.
 //
 // totals (int64, contiguous, on the device): [frontend, critic, generator,
-// ema, between, steps, last]. last == 0 means no mark has run: the first
+// ema, between, steps, last, critic updates]. last == 0 means no mark has run: the first
 // start mark adds nothing to "between". A sixth kernel, the anchor, sets
 // last to now and adds nothing, so that the next mark counts only from
 // it (a reader that copies the totals, then waits, anchors before its
 // window).
 //
 // What bounds it: a launch (a few microseconds in a graph), once per
-// boundary, five a step.
+// boundary: five a step, and one more for each critic update past the
+// first.
 
 #include <cstdint>
 
@@ -31,7 +33,7 @@
 namespace {
 
 constexpr int kFrontend = 0, kCritic = 1, kGenerator = 2, kEma = 3,
-              kBetween = 4, kSteps = 5, kLast = 6;
+              kBetween = 4, kSteps = 5, kLast = 6, kCritics = 7;
 
 __device__ __forceinline__ long long global_ns() {
   unsigned long long t;
@@ -40,14 +42,14 @@ __device__ __forceinline__ long long global_ns() {
 }
 
 __device__ __forceinline__ void mark(long long* totals, int phase,
-                                     bool step) {
+                                     int count) {
   const long long now = global_ns();
   const long long last = totals[kLast];
   if (last != 0) {
     totals[phase] += now - last;
   }
-  if (step) {
-    totals[kSteps] += 1;
+  if (count >= 0) {
+    totals[count] += 1;
   }
   totals[kLast] = now;
 }
@@ -55,19 +57,19 @@ __device__ __forceinline__ void mark(long long* totals, int phase,
 }  // namespace
 
 __global__ void
-step_mark_start(long long* totals) { mark(totals, kBetween, false); }
+step_mark_start(long long* totals) { mark(totals, kBetween, -1); }
 
 __global__ void
-step_mark_frontend(long long* totals) { mark(totals, kFrontend, false); }
+step_mark_frontend(long long* totals) { mark(totals, kFrontend, -1); }
 
 __global__ void
-step_mark_critic(long long* totals) { mark(totals, kCritic, false); }
+step_mark_critic(long long* totals) { mark(totals, kCritic, kCritics); }
 
 __global__ void
-step_mark_generator(long long* totals) { mark(totals, kGenerator, false); }
+step_mark_generator(long long* totals) { mark(totals, kGenerator, -1); }
 
 __global__ void
-step_mark_end(long long* totals) { mark(totals, kEma, true); }
+step_mark_end(long long* totals) { mark(totals, kEma, kSteps); }
 
 __global__ void
 step_mark_anchor(long long* totals) { totals[kLast] = global_ns(); }

@@ -4,7 +4,8 @@ version.
 A mark is one of the five boundaries of a step (:data:`MARKS`). It adds
 the time since the previous mark to one phase's total (:data:`PHASES`,
 the order of the totals' slots) and keeps its own time as the last; the
-``end`` mark also counts the step. ``start`` adds to ``between`` (the gap
+``end`` mark also counts the step, and the ``critic`` mark, which ends
+each critic update, the critic updates (:data:`CRITICS`). ``start`` adds to ``between`` (the gap
 since the previous step's end), unless no mark has run yet. The anchor
 (:data:`ANCHOR`, passed where a mark is) sets the last mark's time to now
 and adds nothing, so the next mark counts only from it.
@@ -28,8 +29,8 @@ from gansynth_tpu_torch.kernels._build import I32, PTR, launch, symbol
 MARKS = ("start", "frontend", "critic", "generator", "end")
 ANCHOR = len(MARKS)   # the kernel step_mark_anchor
 PHASES = ("frontend", "critic", "generator", "ema", "between")
-STEPS, LAST = len(PHASES), len(PHASES) + 1
-SLOTS = len(PHASES) + 2
+STEPS, LAST, CRITICS = len(PHASES), len(PHASES) + 1, len(PHASES) + 2
+SLOTS = len(PHASES) + 3
 
 
 def phase_ended(mark: int) -> int:
@@ -41,7 +42,7 @@ def phase_ended(mark: int) -> int:
 
 def new_totals(device) -> torch.Tensor:
     """Zeroed totals (int64 ``[SLOTS]``: the phases' ns, the steps, the
-    last mark's time) on ``device``."""
+    last mark's time, the critic updates) on ``device``."""
     return torch.zeros(SLOTS, dtype=torch.int64, device=device)
 
 
@@ -56,6 +57,8 @@ def step_mark_plain(totals: torch.Tensor, mark: int) -> None:
         totals[phase_ended(mark)] += now - last
     if MARKS[mark] == "end":
         totals[STEPS] += 1
+    if MARKS[mark] == "critic":
+        totals[CRITICS] += 1
     totals[LAST] = now
 
 

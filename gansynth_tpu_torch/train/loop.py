@@ -32,6 +32,11 @@ phases (``train/step.py:StepPhases``) and logs, as ms a step since the
 last log, each phase's device time (``phase_ms/<phase>``) and the host's
 staging (``host_stage_ms``); with a mesh, rank 0's.
 
+WaveGAN (``model.architecture``) has one stage at alpha 1
+(``schedule_from_config``) and trains from ``device_dataset`` only; its
+sample dumps write the EMA's waves (``make_wavegan_sampler``) with no
+image.
+
 Graceful stop: a ``STOP`` file in the workdir (``cli stop``) makes the
 loop checkpoint at the next superstep boundary and return; the file is
 consumed when honoured. A file already present at start is honoured at
@@ -95,14 +100,15 @@ def _dump_samples(config, state, sample, step: int, workdir: str,
 
     key = jrandom.fold_in(jrandom.seed_to_key(config.train.seed), step)
     waves, images = sample(key, config.train.sample_pitches)
-    waves, images = waves.float().cpu().numpy(), images.float().cpu().numpy()
+    waves = waves.float().cpu().numpy()
     out_dir = os.path.join(workdir, "samples")
     os.makedirs(out_dir, exist_ok=True)
     for pitch, wave in zip(config.train.sample_pitches, waves):
         write_wav(os.path.join(out_dir, f"step{step:08d}_pitch{pitch}.wav"),
                   wave, config.audio.sample_rate)
-    if logger is not None:
-        logger.log_artifacts(step, waves, images, config.audio.sample_rate)
+    if logger is not None and images is not None:   # WaveGAN's: no image
+        logger.log_artifacts(step, waves, images.float().cpu().numpy(),
+                             config.audio.sample_rate)
 
 
 def _phase_ms(now: Dict[str, int],
@@ -259,9 +265,16 @@ def train(
 
     def get_sampler(stage: int):
         if stage not in sampler_fns:
-            from gansynth_tpu_torch.synth.sampler import make_sampler
+            if config.model.architecture == "wavegan":
+                from gansynth_tpu_torch.models.wavegan import (
+                    make_wavegan_sampler,
+                )
 
-            sampler_fns[stage] = make_sampler(config, state.ema, stage)
+                sampler_fns[stage] = make_wavegan_sampler(config, state.ema)
+            else:
+                from gansynth_tpu_torch.synth.sampler import make_sampler
+
+                sampler_fns[stage] = make_sampler(config, state.ema, stage)
         return sampler_fns[stage]
 
     def get_step_fn(stage: int, fused: bool, released: bool):

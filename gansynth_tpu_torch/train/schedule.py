@@ -85,8 +85,13 @@ class ProgressiveSchedule:
 
 
 def schedule_from_config(config) -> ProgressiveSchedule:
-    """Build the schedule from a Config (per-stage tuples win when set)."""
+    """Build the schedule from a Config (per-stage tuples win when set).
+    WaveGAN (``model.architecture``) does not grow: one stage, at alpha 1,
+    for ``stable_steps``."""
     t = config.train
+    if config.model.architecture == "wavegan":
+        return ProgressiveSchedule(num_stages=1, fade_steps=0,
+                                   stable_steps=t.stable_steps)
     return ProgressiveSchedule(
         num_stages=config.model.num_stages,
         fade_steps=(t.stage_fade_steps if t.stage_fade_steps is not None

@@ -184,17 +184,30 @@ def create_train_state(config: Config, seed: Optional[int] = None,
     (:func:`init_like_reference`), or the given ``g`` (and ``ema``, else a
     copy of ``g``); Adam fresh for both; krest as the state's key
     (:func:`train_key`). Every process that makes the state from one seed
-    holds the same weights."""
+    holds the same weights. ``model.architecture = "wavegan"`` makes
+    WaveGAN's networks (``models/wavegan.py``), initialised by
+    ``init_wavegan`` from the same keys."""
     from gansynth_tpu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
     seed = config.train.seed if seed is None else seed
     kg, kd, _ = jrandom.split(jrandom.seed_to_key(seed), 3)
+    if config.model.architecture == "wavegan":
+        from gansynth_tpu_torch.models.wavegan import (
+            WaveGANDiscriminator,
+            WaveGANGenerator,
+            init_wavegan,
+        )
+
+        make_g, make_d, init = (WaveGANGenerator, WaveGANDiscriminator,
+                                init_wavegan)
+    else:
+        make_g, make_d, init = Generator, Discriminator, init_like_reference
     if g is None:
-        g = Generator(config.model)
-        init_like_reference(g, kg)
-    d = Discriminator(config.model)
-    init_like_reference(d, kd)
+        g = make_g(config.model)
+        init(g, kg)
+    d = make_d(config.model)
+    init(d, kd)
     g, d = g.to(dev).train(), d.to(dev).train()
     ema = (copy.deepcopy(g) if ema is None else ema.to(dev)).eval()
     for p in ema.parameters():

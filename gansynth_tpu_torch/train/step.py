@@ -57,6 +57,16 @@ The sharded cache's rows come from their owners at a fixed shape
 (:func:`_gather_from_owners`), from the global batch's indices staged in
 each step's row.
 
+WaveGAN (``model.architecture = "wavegan"``, ``models/wavegan.py``) runs
+through the same program from the device cache only
+(:func:`make_cached_superstep`): a step is ``train.critic_updates`` critic
+updates, each on its own batch (the stream's at position ``step * n +
+j``), latents, interpolation weights and phase-shuffle shifts, then the
+generator update on the last batch's labels, all in the one graph. Its
+row (:class:`_Rows`, :class:`WaveGANRow`) carries n of each, the shifts
+as integers, and n bias corrections of the critic's Adam, whose count
+advances n a step. The noise is ``models.wavegan.wavegan_noise``'s.
+
 ``fused_critic`` ("none", "pair", "all") only schedules the reference's
 critic passes (vmap stacks them; every pass keeps its own minibatch-stddev
 groups), so all three compute the same function. The port runs the three
@@ -68,7 +78,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,6 +87,11 @@ from torch.profiler import record_function
 
 from gansynth_tpu_torch.kernels import marks
 from gansynth_tpu_torch.models.layers import downsample_avg
+from gansynth_tpu_torch.models.wavegan import (
+    SHUFFLED,
+    SLICE_LEN,
+    wavegan_noise,
+)
 from gansynth_tpu_torch.ops.harmonic import image_pitch_logits
 from gansynth_tpu_torch.ops.spectral import wave_to_image
 from gansynth_tpu_torch.synth import random as jrandom
@@ -154,32 +169,50 @@ StepFn = Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]
 
 _D_METRICS = ("d_loss", "wgan", "gradient_penalty", "drift", "d_pitch_ce",
               "d_pitch_ce_fake", "critic_real", "critic_fake")
-# alpha, then the critic's and the generator's Adam bias corrections
-_SCALARS = 5
 
 
 def _make_core(config: Config, stage: int, mesh):
-    """``(core, metric names)``: ``core(state, wave, pitch, alpha, z_d, u,
-    z_g, bc_d, bc_g, mark) -> metrics``, one step's device work on tensors
-    (``bc_d``, ``bc_g``: each Adam's two bias corrections), updating the
-    state's tensors in place; ``mark(name)`` is called at the frontend's,
-    the critic update's and the generator update's ends
-    (:class:`StepPhases`)."""
+    """``(core, metric names)``: ``core(state, row, fetch, mark) ->
+    metrics``, one step's device work on tensors, updating the state's
+    tensors in place. ``row`` is what :meth:`_Rows.read` gives (the noise,
+    alpha, each Adam's bias corrections, the batch's indices and, for
+    WaveGAN, the phase-shuffle shifts); ``fetch(idx)`` gives a batch's
+    ``(wave, pitch)``; ``mark(name)`` is called at the frontend's end,
+    after each critic update and at the generator update's end
+    (:class:`StepPhases`).
+
+    GANSynth: the mel-IF frontend, one critic update and the generator
+    update. WaveGAN (``model.architecture``): the frontend pads each of
+    ``train.critic_updates`` batches to ``SLICE_LEN`` samples, a critic
+    update on each (its metrics averaged over them), then the generator
+    update with the last batch's labels."""
     m, t = config.model, config.train
     if t.fused_critic not in ("none", "pair", "all"):
         raise ValueError(f"unknown fused_critic {t.fused_critic!r}")
+    wavegan = is_wavegan(config)
+    n = critic_updates(config)
     use_pc = (t.pitch_consistency_weight > 0.0
               and stage >= t.pitch_consistency_min_stage)
+    if use_pc and wavegan:
+        raise ValueError("the pitch-consistency loss reads a spectral "
+                         "image; WaveGAN has none")
 
-    def critic_update(state, real, labels, z_d, u, alpha, bc):
-        def critic_fn(x):
-            return state.d(x, stage, alpha, mesh)
+    def critic_call(state, x, alpha, shifts):
+        if wavegan:
+            return state.d(x, shifts)
+        return state.d(x, stage, alpha, mesh)
+
+    def critic_update(state, real, labels, z_d, u, alpha, bc, shifts=None):
+        def critic_fn(x, call):
+            return critic_call(state, x, alpha,
+                               None if shifts is None else shifts[call])
 
         with torch.no_grad():   # no gradient to G (step.py:89)
             fake = state.g(z_d, labels, stage, alpha)
-        c_real, logits_real = critic_fn(real)
-        c_fake, logits_fake = critic_fn(fake)
-        gp = losses.gradient_penalty(critic_fn, real, fake, u)
+        c_real, logits_real = critic_fn(real, 0)
+        c_fake, logits_fake = critic_fn(fake, 1)
+        gp = losses.gradient_penalty(lambda x: critic_fn(x, 2), real, fake,
+                                     u)
         wgan = losses.wgan_critic_loss(c_real, c_fake)
         drift = losses.drift_penalty(c_real)
         ce = losses.pitch_cross_entropy(logits_real, labels)
@@ -193,9 +226,9 @@ def _make_core(config: Config, stage: int, mesh):
             d_loss, wgan, gp, drift, ce, ce_fake, torch.mean(c_real),
             torch.mean(c_fake))))
 
-    def generator_update(state, labels, z_g, alpha, bc):
+    def generator_update(state, labels, z_g, alpha, bc, shifts=None):
         fake = state.g(z_g, labels, stage, alpha)
-        c_fake, logits_fake = state.d(fake, stage, alpha, mesh)
+        c_fake, logits_fake = critic_call(state, fake, alpha, shifts)
         adv = losses.generator_adversarial_loss(c_fake)
         ce = losses.pitch_cross_entropy(logits_fake, labels)
         g_loss = adv + t.aux_pitch_weight * ce
@@ -211,7 +244,16 @@ def _make_core(config: Config, stage: int, mesh):
         state.g_opt.update(*bc)
         return out
 
-    def core(state, wave, pitch, alpha, z_d, u, z_g, bc_d, bc_g, mark):
+    def finish(state, metrics):
+        ema_update(state.ema, state.g, t.ema_decay)
+        metrics = {k: v.detach().float() for k, v in metrics.items()}
+        if mesh is not None:
+            metrics = _mean_over_ranks(metrics, mesh)
+        return metrics
+
+    def core(state, row, fetch, mark):
+        z_d, u, z_g, alpha, bc_d, bc_g, idx = row
+        wave, pitch = fetch(idx)
         labels = pitch_to_onehot(pitch, config)
         with torch.no_grad():
             real = real_image_for_stage(wave.float(), stage, config)
@@ -224,15 +266,47 @@ def _make_core(config: Config, stage: int, mesh):
         # ----- generator update (fresh latents, refreshed critic) -----
         metrics.update(generator_update(state, labels, z_g, alpha, bc_g))
         mark("generator")
-        ema_update(state.ema, state.g, t.ema_decay)
-        metrics = {k: v.detach().float() for k, v in metrics.items()}
-        if mesh is not None:
-            metrics = _mean_over_ranks(metrics, mesh)
-        return metrics
+        return finish(state, metrics)
+
+    def wavegan_core(state, row, fetch, mark):
+        batches = [fetch(row.idx[j]) for j in range(n)]
+        labels = [pitch_to_onehot(p, config) for _, p in batches]
+        with torch.no_grad():
+            reals = [F.pad(w.float(), (0, SLICE_LEN - w.shape[-1]))
+                     for w, _ in batches]
+        mark("frontend")
+        updates = []
+        for j in range(n):
+            updates.append(critic_update(
+                state, reals[j], labels[j], row.z_d[j], row.u[j][:, None],
+                row.alpha, row.bc_d[j], row.shifts_d[j]))
+            mark("critic")
+        metrics = {k: torch.stack([r[k] for r in updates]).mean()
+                   for k in updates[0]}
+        metrics.update(generator_update(state, labels[-1], row.z_g, row.alpha,
+                                        row.bc_g, row.shifts_g))
+        mark("generator")
+        return finish(state, metrics)
 
     names = (*_D_METRICS, "g_adv", "g_pitch_ce",
              *(("g_pitch_consistency",) if use_pc else ()), "g_loss")
-    return core, names
+    return (wavegan_core if wavegan else core), names
+
+
+def is_wavegan(config: Config) -> bool:
+    arch = config.model.architecture
+    if arch not in ("gansynth", "wavegan"):
+        raise ValueError(f"unknown model.architecture {arch!r}")
+    return arch == "wavegan"
+
+
+def critic_updates(config: Config) -> int:
+    """``train.critic_updates``, checked: GANSynth's step has one."""
+    n = int(config.train.critic_updates)
+    if n < 1 or (n > 1 and not is_wavegan(config)):
+        raise ValueError(f"critic_updates {n}: GANSynth's step makes one "
+                         "critic update, WaveGAN's one or more")
+    return n
 
 
 def _stage_rows(state: TrainState, alphas, batch: int, latent_dim: int,
@@ -262,6 +336,34 @@ def _stage_rows(state: TrainState, alphas, batch: int, latent_dim: int,
     return np.stack(out)
 
 
+def _stage_wavegan_rows(state: TrainState, alphas, config: Config,
+                        indices) -> np.ndarray:
+    """WaveGAN's rows (:class:`_Rows` with ``updates`` n and shifts): step
+    i's noise (``models.wavegan.wavegan_noise``), its alpha, the critic's
+    bias corrections at its count + i n + j + 1 for update j and the
+    generator's at its count + i + 1, the shifts and ``indices[i]`` ([n,
+    batch])."""
+    m, n = config.model, critic_updates(config)
+    batch = config.train.batch_for_stage(0)
+    d, g = state.d_opt, state.g_opt
+    out = []
+    for i, alpha in enumerate(alphas):
+        noise = wavegan_noise(state.rng, state.step + i, batch, m.latent_dim,
+                              n)
+        scalars = [alpha] + [c for j in range(n) for c in
+                             d.bias_corrections(d.count + i * n + j + 1)]
+        scalars += g.bias_corrections(g.count + i + 1)
+        floats = np.concatenate([noise["z_d"].reshape(-1),
+                                 noise["u"].reshape(-1),
+                                 noise["z_g"].reshape(-1),
+                                 np.array(scalars, np.float32)])
+        out.append(np.concatenate([
+            floats.astype(np.float32).view(np.int32),
+            noise["shifts_d"].reshape(-1), noise["shifts_g"],
+            np.asarray(indices[i], np.int32).reshape(-1)]))
+    return np.stack(out)
+
+
 def _copy_in(dst: torch.Tensor, array: np.ndarray) -> None:
     """``dst[:len(array)] = array`` in one copy, from pinned memory to a
     card (the host does not wait; the copy keeps its source alive)."""
@@ -271,20 +373,39 @@ def _copy_in(dst: torch.Tensor, array: np.ndarray) -> None:
     dst[:len(array)].copy_(src, non_blocking=True)
 
 
+class WaveGANRow(NamedTuple):
+    """One WaveGAN step's row on the device (``n`` critic updates)."""
+
+    z_d: torch.Tensor        # [n, B, D]
+    u: torch.Tensor          # [n, B]
+    z_g: torch.Tensor        # [B, D]
+    alpha: torch.Tensor
+    bc_d: list               # n pairs of 0-d tensors
+    bc_g: tuple
+    shifts_d: torch.Tensor   # int64 [n, 3, 4]
+    shifts_g: torch.Tensor   # int64 [4]
+    idx: Optional[torch.Tensor]   # int64 [n, indices]
+
+
 class _Rows:
     """The per-step values of up to ``kmax`` steps, on ``device``. Row k
-    holds step k's z_d [b, D], u [b], z_g [b, D], alpha and the critic's
-    and the generator's bias corrections as float32 bits, then
-    ``indices`` example indices (int32): this rank's batch's, or the
-    global batch's for a sharded cache. :attr:`pos`, on the
-    device, is the row the next step reads; each step writes its metrics
-    to row ``pos`` of :attr:`metrics` and advances it."""
+    holds step k's z_d [n, b, D], u [n, b], z_g [b, D], alpha, the critic's
+    bias corrections for each of its ``updates`` n and the generator's as
+    float32 bits, then ``shifts`` phase-shuffle shifts (WaveGAN's, [n, 3,
+    4] and [4]; none for GANSynth) and n times ``indices`` example indices
+    (int32): this rank's batch's, or the global batch's for a sharded
+    cache. :attr:`pos`, on the device, is the row the next step reads;
+    each step writes its metrics to row ``pos`` of :attr:`metrics` and
+    advances it."""
 
     def __init__(self, device, batch: int, latent_dim: int, kmax: int,
-                 n_metrics: int, indices: int):
+                 n_metrics: int, indices: int, updates: int = 1,
+                 shifts: int = 0):
         self.batch, self.latent_dim = batch, latent_dim
-        self.floats = 2 * batch * latent_dim + batch + _SCALARS
-        self.width = self.floats + indices
+        self.updates, self.shifts, self.indices = updates, shifts, indices
+        self.floats = ((updates + 1) * batch * latent_dim + updates * batch
+                       + 1 + 2 * updates + 2)
+        self.width = self.floats + shifts + updates * indices
         self.rows = torch.zeros((kmax, self.width), dtype=torch.int32,
                                 device=device)
         self.pos = torch.zeros((1,), dtype=torch.int64, device=device)
@@ -296,16 +417,26 @@ class _Rows:
         self.pos.zero_()
 
     def read(self):
-        """``(z_d, u, z_g, alpha, bc_d, bc_g, idx)`` of row ``pos``."""
+        """Row ``pos``: GANSynth's ``(z_d, u, z_g, alpha, bc_d, bc_g,
+        idx)`` (u [b, 1, 1, 1]), or a :class:`WaveGANRow`."""
         row = self.rows.index_select(0, self.pos)[0]
         f = row.view(torch.float32)
-        b, d = self.batch, self.latent_dim
-        n = b * d
-        s = f[2 * n + b:self.floats]
-        idx = row[self.floats:].long() if self.width > self.floats else None
-        return (f[:n].view(b, d), f[n:n + b].view(b, 1, 1, 1),
-                f[n + b:2 * n + b].view(b, d), s[0], (s[1], s[2]),
-                (s[3], s[4]), idx)
+        n, b, d = self.updates, self.batch, self.latent_dim
+        nd = n * b * d
+        z_d, u = f[:nd].view(n, b, d), f[nd:nd + n * b].view(n, b)
+        o = nd + n * b
+        z_g, s = f[o:o + b * d].view(b, d), f[o + b * d:self.floats]
+        bc_d = [(s[1 + 2 * j], s[2 + 2 * j]) for j in range(n)]
+        bc_g = (s[1 + 2 * n], s[2 + 2 * n])
+        idx = row[self.floats + self.shifts:]
+        idx = idx.long().view(n, self.indices) if self.indices else None
+        if not self.shifts:
+            return (z_d[0], u[0].view(b, 1, 1, 1), z_g, s[0], bc_d[0], bc_g,
+                    None if idx is None else idx[0])
+        ints = row[self.floats:self.floats + self.shifts].long()
+        k = self.shifts - SHUFFLED
+        return WaveGANRow(z_d, u, z_g, s[0], bc_d, bc_g,
+                          ints[:k].view(n, -1, SHUFFLED), ints[k:], idx)
 
     def write(self, metrics: torch.Tensor) -> None:
         self.metrics.index_copy_(0, self.pos, metrics[None])
@@ -321,15 +452,17 @@ class _Rows:
 class StepPhases:
     """Where a program's steps spend their time, kept by the program.
 
-    Device: five marks a step (``kernels/marks.py``: ``start`` before the
-    row is read, ``frontend`` after the real image, ``critic`` and
-    ``generator`` after each update with its Adam, ``end`` after the row
-    is written) add the time between them to the phases ``frontend``,
-    ``critic``, ``generator``, ``ema`` (EMA, the metrics, their mean over
-    the ranks, the row write) and ``between`` (the previous step's end to
-    this one's start: between replays and between supersteps; not counted
-    at a program's first mark), and count the steps. The totals stay on
-    the step's device, and the graph replays the marks with the step.
+    Device: marks a step (``kernels/marks.py``: ``start`` before the
+    row is read, ``frontend`` after the real batches, ``critic`` after
+    each critic update with its Adam, ``generator`` after the generator
+    update with its Adam, ``end`` after the row is written) add the time
+    between them to the phases ``frontend``, ``critic`` (all of a step's
+    critic updates), ``generator``, ``ema`` (EMA, the metrics, their mean
+    over the ranks, the row write) and ``between`` (the previous step's
+    end to this one's start: between replays and between supersteps; not
+    counted at a program's first mark), and count the steps and the
+    critic updates. The totals stay on the step's device, and the graph
+    replays the marks with the step.
 
     Host: :meth:`staging` is the span ``superstep.stage`` (a profiler
     range) around the host's staging of a call's rows, and adds its ns to
@@ -369,11 +502,12 @@ class StepPhases:
             self.host_stage_ns += time.perf_counter_ns() - t0
 
     def read(self) -> Dict[str, int]:
-        """``{"steps": n, "<phase>_ns": ..., "host_stage_ns": ...}``, each
-        a total since the program was made."""
+        """``{"steps": n, "critic_updates": m, "<phase>_ns": ...,
+        "host_stage_ns": ...}``, each a total since the program was
+        made."""
         t = ([0] * marks.SLOTS if self.totals is None
              else self.totals.tolist())
-        return {"steps": t[marks.STEPS],
+        return {"steps": t[marks.STEPS], "critic_updates": t[marks.CRITICS],
                 **{f"{p}_ns": t[i] for i, p in enumerate(marks.PHASES)},
                 "host_stage_ns": self.host_stage_ns}
 
@@ -399,6 +533,11 @@ class _StepProgram:
     def __init__(self, config: Config, stage: int, mesh, graphs: bool):
         self.core, self.names = _make_core(config, stage, mesh)
         self.latent_dim = config.model.latent_dim
+        self.updates = critic_updates(config)
+        self.shifts = ((3 * self.updates + 1) * SHUFFLED
+                       if is_wavegan(config) else 0)
+        if self.shifts and mesh is not None:
+            raise ValueError("WaveGAN trains on one device (no mesh)")
         self.mesh = mesh
         self.graphs = graphs
         self.rows: Optional[_Rows] = None
@@ -421,10 +560,9 @@ class _StepProgram:
     def _body(self, state, fetch) -> None:
         mark = self.phases.mark
         mark("start")
-        z_d, u, z_g, alpha, bc_d, bc_g, idx = self.rows.read()
-        wave, pitch = fetch(idx, self.rows.pos)
-        metrics = self.core(state, wave, pitch, alpha, z_d, u, z_g, bc_d,
-                            bc_g, mark)
+        row = self.rows.read()
+        metrics = self.core(state, row, lambda idx: fetch(idx, self.rows.pos),
+                            mark)
         self.rows.write(torch.stack([metrics[k] for k in self.names]))
         mark("end")
 
@@ -468,10 +606,10 @@ class _StepProgram:
             k = len(rows)
             r = self.rows
             if (r is None or r.rows.shape[0] < k or r.batch != batch
-                    or r.rows.device != device
-                    or r.width - r.floats != indices):
+                    or r.rows.device != device or r.indices != indices):
                 r = self.rows = _Rows(device, batch, self.latent_dim,
-                                      max(k, kmax), len(self.names), indices)
+                                      max(k, kmax), len(self.names), indices,
+                                      self.updates, self.shifts)
                 self.graph = None
             if rows.shape[1] != r.width:
                 raise ValueError(f"staged rows of {rows.shape[1]} words, "
@@ -497,7 +635,7 @@ class _StepProgram:
             for _ in range(k):
                 self._body(state, fetch)
         state.step += k
-        state.d_opt.count += k
+        state.d_opt.count += k * self.updates
         state.g_opt.count += k
         return r.mean(k, self.names)
 
@@ -531,6 +669,7 @@ def make_train_step(config: Config, stage: int, mesh=None,
     or passed for the global batch) is taken at the same rows; the
     minibatch-stddev statistic, the gradients and the metrics are the
     global batch's, so every rank holds the same state after the step."""
+    _spectral_only(config)
     prog = _StepProgram(config, stage, mesh, graphs)
 
     def step_fn(state: TrainState, wave: torch.Tensor, pitch: torch.Tensor,
@@ -561,6 +700,7 @@ def make_superstep(config: Config, stage: int, mesh=None,
     the same steps taken one at a time. On a card the K steps are K
     replays of one CUDA graph. With a ``mesh``, B is this rank's rows
     (:func:`make_train_step`)."""
+    _spectral_only(config)
     prog = _StepProgram(config, stage, mesh, graphs)
     kmax = max(1, int(config.train.unroll))
 
@@ -579,6 +719,13 @@ def make_superstep(config: Config, stage: int, mesh=None,
 
     superstep.program = prog
     return superstep
+
+
+def _spectral_only(config: Config) -> None:
+    if is_wavegan(config):
+        raise ValueError("WaveGAN's step reads several batches a step from "
+                         "the device cache: make_cached_superstep "
+                         "(cli train --device-cache)")
 
 
 @functools.lru_cache(maxsize=4)
@@ -653,7 +800,11 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
     takes its rows: from its full copy of the dataset under
     ``device_cache_layout="replicate"``, or from their owners under
     ``"shard"`` (``all_waves`` is then this rank's N/W examples;
-    ``num_examples`` stays N)."""
+    ``num_examples`` stays N).
+
+    WaveGAN (``model.architecture``) takes ``train.critic_updates`` n
+    batches a step, the stream's at positions ``step * n + j``, and its
+    own noise (``models.wavegan.wavegan_noise``)."""
     batch = config.train.batch_for_stage(stage)
     sharded = mesh is not None and config.train.device_cache_layout == "shard"
     if mesh is not None:
@@ -674,11 +825,17 @@ def make_cached_superstep(config: Config, stage: int, num_examples: int,
     prog = _StepProgram(config, stage, mesh, graphs)
     kmax = max(1, int(config.train.unroll))
     local = batch if mesh is None else batch // mesh.world
+    wavegan, n = is_wavegan(config), prog.updates
 
     def superstep(state, all_waves, all_pitches, alphas):
         alphas = [float(a) for a in alphas]
 
         def stage():
+            if wavegan:
+                idx = [[cached_batch_indices(state.rng, (state.step + i) * n
+                                             + j, batch, num_examples, law)
+                        for j in range(n)] for i in range(len(alphas))]
+                return _stage_wavegan_rows(state, alphas, config, idx)
             idx = [cached_batch_indices(state.rng, state.step + i, batch,
                                         num_examples, law)
                    for i in range(len(alphas))]

@@ -7,8 +7,10 @@ its flax path (``"['params']['block_0']['conv0']['kernel']"``), plus
 or a flax parameter tree, of either network onto the port's state dict:
 the generator's ``latent_dense``, ``block_i`` and ``to_rgb_i``; the
 critic's ``from_rgb_i``, ``block_i.conv0/conv1``, ``final_conv``,
-``final_dense``, ``critic_head`` and ``pitch_head``. Conv kernels go from
-HWIO to OIHW, dense kernels from [in, out] to [out, in];
+``final_dense``, ``critic_head`` and ``pitch_head``; WaveGAN's
+``z_project``, ``upconv_i`` and ``downconv_i`` too. Conv kernels go from
+HWIO to OIHW, 1-D kernels from TF's [k, in, out] (a transposed conv's [k,
+out, in]) to PyTorch's, dense kernels from [in, out] to [out, in];
 :func:`to_jax_params` maps them back, and :func:`save_ema_npz` writes the
 EMA generator in the reference's format, which ``cli serve`` of either
 package reads.
@@ -91,7 +93,7 @@ def from_jax_params(params: Mapping) -> Dict[str, torch.Tensor]:
             continue
         arr = arr.astype(np.float32)
         if path[-1] == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            arr = arr.T if arr.ndim <= 3 else arr.transpose(3, 2, 0, 1)
         state[_port_name(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return state
 
@@ -136,7 +138,7 @@ def to_jax_params(state_dict: Mapping[str, torch.Tensor]
         arr = value.detach().cpu().float().numpy()
         path = _jax_path(name)
         if path[-1] == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+            arr = arr.T if arr.ndim <= 3 else arr.transpose(2, 3, 1, 0)
         key = "".join(f"['{p}']" for p in ("params",) + path)
         flat[key] = np.ascontiguousarray(arr)
     return flat

@@ -649,15 +649,17 @@ def test_a_superstep_recaptures_for_another_state(simulated):
 
 
 def test_an_eager_superstep_counts_its_phases(monkeypatch):
-    """k eager steps on the CPU: k steps, every phase above nought, the
-    totals within 10 % of the host's time from the first step's row read
-    to the last step's row write, and the staging span's time."""
+    """k eager steps on the CPU: k steps and k critic updates, every phase
+    above nought, the totals within 10 % of the host's time from the first
+    step's row read to the last step's row write, and the staging span's
+    time."""
     cfg = Config().with_overrides(NARROW)
     state = create_train_state(cfg, seed=0, device="cpu")
     all_waves, pitches = note_batch(EXAMPLES)
     superstep = tstep.make_cached_superstep(cfg, STAGE, EXAMPLES)
     phases = superstep.program.phases
-    assert phases.read() == {"steps": 0, "frontend_ns": 0, "critic_ns": 0,
+    assert phases.read() == {"steps": 0, "critic_updates": 0,
+                             "frontend_ns": 0, "critic_ns": 0,
                              "generator_ns": 0, "ema_ns": 0,
                              "between_ns": 0, "host_stage_ns": 0}
     times = []
@@ -676,7 +678,7 @@ def test_an_eager_superstep_counts_its_phases(monkeypatch):
     superstep(state, torch.from_numpy(all_waves),
               torch.from_numpy(pitches.astype(np.int32)), [1.0] * 3)
     got = phases.read()
-    assert got["steps"] == 3
+    assert got["steps"] == 3 and got["critic_updates"] == 3
     totals = [got[f"{p}_ns"] for p in ("frontend", "critic", "generator",
                                        "ema", "between")]
     assert all(t > 0 for t in totals), got

@@ -50,6 +50,8 @@ from gansynth_tpu_torch.synth.export import (
 from gansynth_tpu_torch.train.state import create_train_state
 from gansynth_tpu_torch.utils.audio_io import read_wav
 from gansynth_tpu_torch.utils.checkpoint import Checkpointer, to_jax_params
+from gansynth_tpu_torch.utils.config import Config as TConfig
+from gansynth_tpu_torch.utils.config import as_dict
 from torch_threads import two_torch_threads  # noqa: F401
 
 pytestmark = [pytest.mark.filterwarnings("ignore::DeprecationWarning"),
@@ -421,6 +423,8 @@ def test_restore_lays_model_flags_and_config_over_the_run(params, tmp_path,
 
 
 def _as_json(config):
+    if isinstance(config, TConfig):   # the port's, port-only defaults out
+        return json.loads(json.dumps(as_dict(config)))
     return json.loads(json.dumps(dataclasses.asdict(config)))
 
 

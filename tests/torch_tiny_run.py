@@ -21,6 +21,7 @@ from gansynth_tpu.utils.config import Config as JConfig
 from gansynth_tpu_torch.models.generator import Generator as TGenerator
 from gansynth_tpu_torch.utils.checkpoint import from_jax_params, save_ema_npz
 from gansynth_tpu_torch.utils.config import Config as TConfig
+from gansynth_tpu_torch.utils.config import as_dict
 
 TINY = {"model": {"latent_dim": 8, "fmap_base": 64, "fmap_max": 16,
                   "fmap_min": 8},
@@ -63,7 +64,7 @@ def make_run(path: str, params, *, stage=NPZ_STAGE, step=STEP,
     os.makedirs(path, exist_ok=True)
     tcfg = TConfig().with_overrides(config)
     with open(os.path.join(path, "train_config.json"), "w") as f:
-        json.dump(dataclasses.asdict(tcfg), f, indent=2, sort_keys=True)
+        json.dump(as_dict(tcfg), f, indent=2, sort_keys=True)
     g = port_generator(params, TConfig().with_overrides(TINY))
     save_ema_npz(os.path.join(path, "ema.npz"), g, step, stage=stage,
                  dtype=dtype)
