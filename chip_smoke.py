@@ -226,6 +226,22 @@ raises, so the exit code is non-zero):
     step's calls summed. Phases 8 and 15 count a step's calls
     (``K5_PER_STEP``: 8 forwards, 12 contracts, 2 expands) and its
     ``from_rgb_`` kernels by name (34). One ``{"k5_check": ...}`` line.
+20. K6 (``kernels/csrc/conv1d_wgrad.cu``), run after phase 19
+    (``check_conv1d_wgrad_kernel``): through its wrapper, one launch in
+    the record a call, at WaveGAN's six layer shapes (``k6_layers``) at
+    batch 64 and 3 in bf16, each weight gradient's relative L2 error
+    against the float64 sum of the same inputs, at most ``ROUTE_MARGIN``
+    times cuDNN's bf16 one; at batch 64 K6 replayed from a CUDA graph (its
+    bits the eager call's) beside its floor, cuDNN's weight gradient and
+    the built-in double backward's dilated convolution, each summed over
+    a step's 21 calls a layer (``calls_of_a_step``). Then
+    (``wavegan_step_k6``) a graphed WaveGAN step at d = 64, batch 64:
+    ``K6_PER_STEP`` (90 ``conv``, 36 ``transpose``) by the record over a
+    replay, 252 ``conv1d_wgrad_`` kernels and no ``wgrad_alg1`` by name in
+    its trace, its ms and K6's device ms in it. Phase 8 holds the
+    flagship's step to no ``conv1d_wgrad_`` kernel by name. The
+    ``{"k6_check": ...}`` and ``{"k6_wavegan_step": ...}`` lines, and the
+    kernels line's ``conv1d_wgrad`` entry.
 
 A replayed graph launches nothing through the wrappers: the launch
 record adds what the capture counted at each replay (``kernels.add``).
@@ -262,7 +278,7 @@ BF16_PEAK_FLOPS = 989e12   # H100 SXM, bf16 tensor cores, dense
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 MAX_BATCH = 16             # the service's top rung
 KERNELS = ("synthesis_spectrum", "conv3x3", "dblock", "dblock_grad",
-           "gen_epilogue", "from_rgb", "step_marks")
+           "gen_epilogue", "from_rgb", "conv1d_wgrad", "step_marks")
 # (B, H, W, C_in, C_out) of every K2 launch in the stage-6 training step:
 # the convs that pass conv3x3_eligible (critic blocks 5/4/3, generator
 # conv1 of blocks 5/4/3) and, for 128 -> 256, its input gradient 256 -> 128.
@@ -1193,6 +1209,206 @@ def check_from_rgb_kernel(device, resources):
     return result
 
 
+# K6 at WaveGAN's six critic layers at the benchmark's d = 64 and batch
+# 64, and at batch 3 (the generator's six are the same, mirrored). A
+# WaveGAN step makes 21 calls at each: 15 for the conv's own weight
+# gradient (real, fake and the interpolates' backward in each of 5 critic
+# updates, K6_PER_STEP's "conv") and 6 for the weight term of its input
+# gradient's gradient (5 penalties, and the generator's transposed conv:
+# "transpose"); by name each is two kernels, the call and its splits' sum.
+K6_DIM = 64
+K6_BATCHES = (64, 3)
+K6_CALLS_PER_STEP = 21
+K6_PER_STEP = {"conv1d_wgrad_conv": 90, "conv1d_wgrad_transpose": 36}
+
+
+def k6_layers():
+    """(C_in, C_out, L) of the critic's six layers at ``K6_DIM``, L the
+    conv's output length."""
+    from gansynth_tpu_torch.models import wavegan as wg
+    from gansynth_tpu_torch.utils.config import ModelConfig
+
+    chans = wg.widths(ModelConfig(wavegan_dim=K6_DIM))
+    return [(chans[i], chans[i + 1], wg.SLICE_LEN // wg.STRIDE ** (i + 1))
+            for i in range(wg.LAYERS)]
+
+
+def check_conv1d_wgrad_kernel(device, resources):
+    """Phase 20: K6 through its wrapper (``conv1d_wgrad``, one launch in
+    the record a call) at WaveGAN's six layer shapes at batch 64 and 3,
+    bf16: the relative L2 error against the float64 sum of the same
+    inputs, at most ROUTE_MARGIN times cuDNN's bf16 weight gradient's; a
+    graph's replays bit-equal to an eager call. At batch 64 K6 replayed
+    from a CUDA graph (``graph_ms``) beside its floor (the larger of the
+    bf16 tensor-core time and the HBM time of x, gy and dw), and, eagerly,
+    cuDNN's weight gradient (``F.conv2d``'s backward, ``cudnn_wgrad_ms``)
+    and the double backward's second-order weight term of the built-in
+    route (the stride-1, dilation-4 convolution, ``dilated_ms``);
+    ``calls_of_a_step`` sums each 21 times, the calls of a step timed one
+    by one (the step itself is :func:`wavegan_step_k6`'s)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gansynth_tpu_torch.kernels import conv1d_wgrad as K6
+    from gansynth_tpu_torch.kernels import launch_counts
+    from gansynth_tpu_torch.models import wavegan as wg
+    from gansynth_tpu_torch.utils.kernel_ab import graph_ms
+
+    def cl(t):
+        return t.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    def rel(got, want):
+        return float((got.double() - want).norm() / want.norm())
+
+    result = {"shapes": [], "resources": resources}
+    step = dict.fromkeys(("graph_ms", "floor_ms", "cudnn_wgrad_ms",
+                          "dilated_ms"), 0.0)
+    for batch in K6_BATCHES:
+        for i, (cin, cout, length) in enumerate(k6_layers()):
+            gen = torch.Generator(device=device).manual_seed(300 + i)
+            x = cl(torch.randn((batch, cin, 1, 4 * length), generator=gen,
+                               device=device))
+            gy = cl(torch.randn((batch, cout, 1, length), generator=gen,
+                                device=device))
+            w = torch.zeros((cout, cin, wg.KERNEL), dtype=x.dtype,
+                            device=device, requires_grad=True)
+            xr = x.detach().requires_grad_()
+            y = F.conv2d(wg._pad_length(xr, 10, 11), w.unsqueeze(2),
+                         stride=(1, 4))
+            before = launch_counts()
+            got = K6.conv1d_wgrad(x, gy, "conv")
+            torch.cuda.synchronize()
+            if launched_since(before) != {
+                    **dict.fromkeys(before, 0), "conv1d_wgrad_conv": 1}:
+                raise AssertionError(f"K6 {(batch, length, cin, cout)}: the "
+                                     "call was not one K6 launch")
+            truth = K6.conv1d_wgrad_plain(x.double(), gy.double())
+            err = rel(got, truth)
+            err_cudnn = rel(torch.autograd.grad(y, w, gy,
+                                                retain_graph=True)[0], truth)
+            if not err <= ROUTE_MARGIN * err_cudnn:
+                raise AssertionError(
+                    f"K6 {(batch, length, cin, cout)}: relative L2 error "
+                    f"{err:.4e} > {ROUTE_MARGIN} * cuDNN's {err_cudnn:.4e}")
+            row = {"shape": [batch, length, cin, cout],
+                   "splits": K6._splits(batch, length, cin, cout),
+                   "rel_err": err, "cudnn_rel_err": err_cudnn}
+            del truth
+            if batch == K6_BATCHES[0]:
+                out = {}
+
+                def call():
+                    out["dw"] = K6.conv1d_wgrad(x, gy, "conv")
+                row["graph_ms"] = graph_ms(call)
+                if not torch.equal(out["dw"], got):
+                    raise AssertionError(f"K6 {row['shape']}: a replay is "
+                                         "not the eager call's bits")
+                flops = 2.0 * batch * length * cin * cout * wg.KERNEL
+                nbytes = 2.0 * (x.numel() + gy.numel() + got.numel())
+                row["bound_by"] = ("ops" if flops / BF16_PEAK_FLOPS
+                                   > nbytes / HBM_BYTES_PER_S else "bytes")
+                row["floor_ms"] = 1e3 * max(flops / BF16_PEAK_FLOPS,
+                                            nbytes / HBM_BYTES_PER_S)
+                row["fraction_of_floor"] = row["floor_ms"] / row["graph_ms"]
+                row["cudnn_wgrad_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(y, w, gy, retain_graph=True),
+                    iters=5, warmup=2)
+                gx, = torch.autograd.grad(y, xr, gy, create_graph=True)
+                ggx = torch.randn(gx.shape, generator=gen, device=device,
+                                  dtype=gx.dtype)
+                row["dilated_ms"] = cuda_ms(
+                    lambda: torch.autograd.grad(gx, w, ggx,
+                                                retain_graph=True),
+                    iters=3, warmup=1)
+                for k in step:
+                    step[k] += K6_CALLS_PER_STEP * row[k]
+                del gx, ggx
+            result["shapes"].append(row)
+            print(json.dumps({"k6": row}), flush=True)
+            del x, gy, w, xr, y, got
+            torch.cuda.empty_cache()
+    result["calls_of_a_step"] = {**step, "fraction_of_floor":
+                                 step["floor_ms"] / step["graph_ms"]}
+    print(json.dumps({"k6_check": result}), flush=True)
+    return result
+
+
+def wavegan_step_k6(device):
+    """Phase 20's WaveGAN step: the benchmark's configuration (d = K6_DIM,
+    batch 64, five critic updates, bf16) as one graphed cached step a call.
+    Over one replay the launch record must add ``K6_PER_STEP`` (90
+    ``conv``, 36 ``transpose``) and a profiler trace must show twice as
+    many ``conv1d_wgrad_`` kernels (252: each call and its splits' sum) and
+    no cuDNN ``wgrad_alg1`` kernel. Also the step's ms (CUDA events over
+    replays), the traced step's device ms and K6's share of it, and the
+    launches of cuDNN's kernels without tensor cores by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.kernels import launch_counts
+    from gansynth_tpu_torch.train.state import create_train_state
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.config import Config
+
+    batch, notes = 64, 128
+    cfg = Config().with_overrides({
+        "model": {"architecture": "wavegan", "wavegan_dim": K6_DIM,
+                  "latent_dim": 100, "compute_dtype": "bfloat16"},
+        "train": {"critic_updates": 5, "batch_size": batch, "unroll": 1,
+                  "drift_weight": 0.0}})
+    box = {"state": create_train_state(cfg, seed=0, device=device)}
+    gen = torch.Generator(device=device).manual_seed(21)
+    waves = 0.3 * torch.randn(notes, 64000, generator=gen, device=device)
+    pitches = torch.randint(24, 85, (notes,), generator=gen, device=device,
+                            dtype=torch.int32)
+    superstep = make_cached_superstep(cfg, 0, notes)
+
+    def call():
+        box["state"], _ = superstep(box["state"], waves, pitches, [1.0])
+
+    call()   # the capture
+    step_ms = cuda_ms(call, iters=5, warmup=1)
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    counted = launched_since(before, *K6_PER_STEP)
+    if counted != K6_PER_STEP:
+        raise AssertionError(f"a WaveGAN step's K6 launches by the record: "
+                             f"{counted}, want {K6_PER_STEP}")
+    legacy = dict.fromkeys(("wgrad_alg1", "implicit_convolve_sgemm",
+                            "precomputed_convolve_sgemm"), 0)
+    traced = device_ms = k6_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.key.startswith("Optimizer."):
+            continue
+        ms = e.device_time_total / 1e3
+        device_ms += ms
+        if "conv1d_wgrad_" in e.key:
+            traced += e.count
+            k6_ms += ms
+        for k in legacy:
+            legacy[k] += e.count if k in e.key else 0
+    if traced != 2 * sum(K6_PER_STEP.values()) or legacy["wgrad_alg1"]:
+        raise AssertionError(f"a traced WaveGAN step: {traced} conv1d_wgrad_ "
+                             f"kernels, want {2 * sum(K6_PER_STEP.values())}"
+                             f"; cuDNN's legacy kernels {legacy}")
+    out = {"d": K6_DIM, "batch": batch, "step_ms": step_ms,
+           "launches_counted_per_step": counted,
+           "launches_traced_per_step": traced,
+           "traced_device_ms": device_ms, "k6_device_ms": k6_ms,
+           "k6_share": k6_ms / device_ms, "legacy_launches": legacy,
+           "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9}
+    del box, waves, pitches, superstep
+    torch.cuda.empty_cache()
+    print(json.dumps({"k6_wavegan_step": out}), flush=True)
+    return out
+
+
 def training_config(dtype=None, kernels="pallas"):
     """The flagship's config after the release step, with the kernels
     switched on (or off) and, optionally, another compute type."""
@@ -1264,6 +1480,10 @@ def train_steps(device):
     bad = [k for k, v in launches.items() if v == 0]
     if bad:
         raise AssertionError(f"the training step never launched {bad}")
+    k6 = launched_since(before, "conv1d_wgrad_conv",
+                        "conv1d_wgrad_transpose")
+    if any(k6.values()):   # K6 is WaveGAN's
+        raise AssertionError(f"a GANSynth step launched K6: {k6}")
     for name, per_step in (("K4", K4_PER_STEP), ("K5", K5_PER_STEP)):
         if any(launches[k] != n * TRAIN_STEPS for k, n in per_step.items()):
             raise AssertionError(f"{name} launches over {TRAIN_STEPS} "
@@ -1289,7 +1509,9 @@ def train_steps(device):
                # each contract with its partials' sum
                "from_rgb": (launches["from_rgb_forward"]
                             + 2 * launches["from_rgb_contract"]
-                            + launches["from_rgb_expand"]) / TRAIN_STEPS}
+                            + launches["from_rgb_expand"]) / TRAIN_STEPS,
+               # each call with its splits' sum (none in a GANSynth step)
+               "conv1d_wgrad": 2 * sum(k6.values()) / TRAIN_STEPS}
     if any(traced[k] != v for k, v in counted.items()):
         raise AssertionError(f"kernels a step: traced {traced}, counted "
                              f"{counted}")
@@ -2954,6 +3176,11 @@ def main() -> int:
         if entry["function"].startswith("dblock_nhwc_bf16_wgmma"):
             entry["dynamic_smem_bytes"] = \
                 lib_of["dblock"].dblock_nhwc_bf16_smem_bytes()
+    for entry in resources["conv1d_wgrad"]:
+        if entry["function"].startswith("conv1d_wgrad_wgmma<"):
+            n = int(entry["function"].split("<")[1].rstrip(">"))
+            entry["dynamic_smem_bytes"] = \
+                lib_of["conv1d_wgrad"].conv1d_wgrad_smem_bytes(n)
     k1_span_max = _device_taps(config.audio, device)[3]
     for entry in resources["synthesis_spectrum"]:
         entry["dynamic_smem_bytes"] = \
@@ -3028,6 +3255,26 @@ def main() -> int:
           f"{k5_con['graph_ms']:.4f} ms ({k5_con['fraction_of_bound']:.3f}); "
           f"a step's calls {k5['step']['graph_ms']:.4f} ms against a bound "
           f"of {k5['step']['bound_ms']:.4f} ms (bytes) ({card})")
+
+    t = time.perf_counter()
+    k6 = check_conv1d_wgrad_kernel(device, resources["conv1d_wgrad"])
+    calls = k6["calls_of_a_step"]
+    phase("K6 vs float64", t, "one launch a wrapper call, within "
+          "ROUTE_MARGIN of cuDNN's bf16 error at the six WaveGAN layers, "
+          "batch 64 and 3, replays bit-equal; a WaveGAN step's "
+          f"{6 * K6_CALLS_PER_STEP} calls, timed one by one, "
+          f"{calls['graph_ms']:.3f} ms against a floor of "
+          f"{calls['floor_ms']:.3f} ms, cuDNN's weight gradient "
+          f"{calls['cudnn_wgrad_ms']:.2f} ms, the dilated path "
+          f"{calls['dilated_ms']:.2f} ms ({card})")
+    t = time.perf_counter()
+    k6_step = wavegan_step_k6(device)
+    phase("K6 in a WaveGAN step", t, "d = 64, batch 64, graphed: "
+          f"{k6_step['launches_counted_per_step']} by the record, "
+          f"{k6_step['launches_traced_per_step']:.0f} conv1d_wgrad_ kernels "
+          f"by name, no wgrad_alg1; step {k6_step['step_ms']:.2f} ms, K6 "
+          f"{k6_step['k6_device_ms']:.2f} ms of the traced step's "
+          f"{k6_step['traced_device_ms']:.2f} device ms ({card})")
 
     t = time.perf_counter()
     generator, step, stage = load_ema_generator(
@@ -3371,6 +3618,22 @@ def main() -> int:
         "bound_by": "bytes",
         "shapes": k5["shapes"],
         "resources": resources["from_rgb"],
+    }, {
+        "name": "conv1d_wgrad",
+        "route": "cuda",
+        "source": "gansynth_tpu_torch/kernels/csrc/conv1d_wgrad.cu",
+        "replaces": "no TPU kernel (the JAX package has no WaveGAN): "
+                    "cuDNN's weight gradients of WaveGAN's kernel-25 "
+                    "stride-4 convs, first order and the penalty's second",
+        # K6 runs in WaveGAN's step; the flagship's launches none
+        "launches_traced_per_step": k6_step["launches_traced_per_step"],
+        "launches_counted_per_step": k6_step["launches_counted_per_step"],
+        "gansynth_launches_traced_per_step":
+            train["launches_traced_per_step"]["conv1d_wgrad"],
+        "wavegan_step": k6_step,
+        "calls_of_a_step": k6["calls_of_a_step"],
+        "shapes": k6["shapes"],
+        "resources": resources["conv1d_wgrad"],
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
 

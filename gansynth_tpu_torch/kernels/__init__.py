@@ -41,6 +41,8 @@ _NAMES = {
     ("from_rgb", "contract"): "from_rgb_contract",
     ("from_rgb", "expand"): "from_rgb_expand",
     ("from_rgb", "recompute"): "from_rgb_recompute",
+    ("conv1d_wgrad", "conv"): "conv1d_wgrad_conv",
+    ("conv1d_wgrad", "transpose"): "conv1d_wgrad_transpose",
 }
 
 
@@ -61,12 +63,13 @@ def is_recomputing() -> bool:
 
 def count(kernel: str, role: str, *shape: int) -> None:
     """One launch of ``kernel`` (``"conv3x3"``, ``"dblock"``,
-    ``"synthesis_spectrum"``, ``"gen_epilogue"``, ``"from_rgb"``) in
-    ``role`` (``"forward"``, ``"input_grad"``, ``"backward"``,
-    ``"backward_plain"``, ``"contract"``, ``"expand"``; ``"recompute"``
-    inside :func:`recomputing`) at ``shape``: K2 ``(B, H, W, C_in,
-    C_out)``, K3 ``(B, H, W, C1)``, K4 ``(B, H, W, C)``, K5 ``(B, H, W,
-    C_out)``, K1 ``(B,)``."""
+    ``"synthesis_spectrum"``, ``"gen_epilogue"``, ``"from_rgb"``,
+    ``"conv1d_wgrad"``) in ``role`` (``"forward"``, ``"input_grad"``,
+    ``"backward"``, ``"backward_plain"``, ``"contract"``, ``"expand"``,
+    ``"conv"``, ``"transpose"``; ``"recompute"`` inside
+    :func:`recomputing`) at ``shape``: K2 ``(B, H, W, C_in, C_out)``, K3
+    ``(B, H, W, C1)``, K4 ``(B, H, W, C)``, K5 ``(B, H, W, C_out)``, K6
+    ``(B, L, C_in, C_out)``, K1 ``(B,)``."""
     key = (kernel, "recompute" if is_recomputing() else role, *shape)
     with _LOCK:
         _RECORD[key] += 1
@@ -99,8 +102,10 @@ def launch_counts() -> Dict[str, int]:
     ``gen_epilogue_backward``, ``gen_epilogue_recompute``,
     ``from_rgb_forward``, ``from_rgb_contract``, ``from_rgb_expand``,
     ``from_rgb_recompute`` (K5's calls, a contract with its partial sums
-    one); a launch that none of them names (K1's inside
-    :func:`recomputing`) under ``<kernel>_<role>``."""
+    one), ``conv1d_wgrad_conv``, ``conv1d_wgrad_transpose`` (K6's calls
+    for a conv's weight gradient and for the weight term of its input
+    gradient's gradient, the split sum one); a launch that none of them
+    names (K1's inside :func:`recomputing`) under ``<kernel>_<role>``."""
     counts = dict.fromkeys(_NAMES.values(), 0)
     for (kernel, role, *_), n in record().items():
         name = _NAMES.get((kernel, role), f"{kernel}_{role}")

@@ -7,11 +7,14 @@
 // through cudaGetDriverEntryPoint, so a kernel library needs no -lcuda and
 // no PyTorch header.
 //
-// Conventions: every operand tile in shared memory is K-major with rows of
-// 64 bf16 (128 bytes), written by TMA with the 128-byte swizzle: the 16-byte
-// chunk c of row r sits at chunk c ^ (r & 7) of that row, counted from a
-// 1024-byte-aligned base. wgmma reads such tiles through sw128_desc; code
-// that reads them with ldmatrix applies the same XOR itself.
+// Conventions: every operand tile in shared memory has rows of 64 bf16 (128
+// bytes), written by TMA with the 128-byte swizzle: the 16-byte chunk c of
+// row r sits at chunk c ^ (r & 7) of that row, counted from a
+// 1024-byte-aligned base. A K-major tile has a row per M or N index and K
+// along the row; wgmma reads it through sw128_desc, and code that reads it
+// with ldmatrix applies the same XOR itself. An MN-major tile (K6) has a row
+// per K index and 64 of M or N along the row; wgmma reads it through
+// sw128_desc_mn with its transpose flag set (kMN = 1).
 
 #pragma once
 
@@ -130,6 +133,18 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// Descriptor of an MN-major tile under the 128-byte swizzle: K rows of 128
+// bytes (64 of M or N), groups of 8 rows 1024 bytes apart (the stride
+// offset), and blocks of 64 along M or N `block_bytes` apart (the leading
+// offset). Adding 128 moves the start 2048 bytes on, to the next 16 K rows.
+__device__ __forceinline__ uint64_t sw128_desc_mn(const void* tile,
+                                                  uint32_t block_bytes) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((block_bytes >> 4) & 0x3FFF) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -152,7 +167,9 @@ __device__ __forceinline__ void fence_operands(float (&r)[N]) {
 }
 
 // D[64 x 128] += A[64 x 16] * B[16 x 128], A and B in shared memory
-// (K-major, 128-byte swizzle), f32 accumulators d[64].
+// (128-byte swizzle; K-major, or both MN-major for kMN = 1), f32
+// accumulators d[64].
+template <int kMN = 0>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -168,7 +185,7 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n"
+      "}, %64, %65, p, 1, 1, %67, %67;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -186,11 +203,13 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kMN));
 }
 
 // D[64 x 256] += A[64 x 16] * B[16 x 256], A and B in shared memory
-// (K-major, 128-byte swizzle), f32 accumulators d[128].
+// (128-byte swizzle; K-major, or both MN-major for kMN = 1), f32
+// accumulators d[128].
+template <int kMN = 0>
 __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a,
                                              uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -214,7 +233,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a,
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n"
+      "}, %128, %129, p, 1, 1, %131, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -248,7 +267,7 @@ __device__ __forceinline__ void wgmma_ss_n256(float (&d)[128], uint64_t desc_a,
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(kMN));
 }
 
 // D[64 x 64] += A[64 x 16] * B[16 x 64], A in registers (the mma.sync

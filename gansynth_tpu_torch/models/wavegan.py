@@ -35,8 +35,22 @@ kernel (1, 25): on an H100 at batch 64 their forward and backward took
 8.2 ms over the generator's six layers against 21.6 ms as NCL
 ``conv1d``, and 32.6 against 39.1 over the critic's (PERF.md). Pads and
 gathers run on the [B, 1, L, C] view, so every tensor stays
-channels-last. The double backward's convs do not gain from the layout:
-one critic update's critic work read 200.7 ms against 196.5 as NCL.
+channels-last.
+
+Gradients: the SAME conv ``C(x, w)``, its input gradient ``T(gy, w)``
+(the transposed conv, cropped) and its weight gradient ``W(x, gy)``
+(K6, ``kernels/conv1d_wgrad.py``) are three autograd functions, each
+differentiable through the others: ``C``'s derivatives are ``T(gy, w)``
+and ``W(x, gy)``, ``T``'s ``C(ggx, w)`` and ``W(ggx, gy)``, ``W``'s
+``T(gy, ggw)`` and ``C(x, ggw)``. So every weight gradient, the
+penalty's second-order term and the generator's transposed convs'
+included, is K6's in bf16 on a card (float32 takes cuDNN's, the CPU the
+plain sum: ``conv1d_wgrad``), while the forwards and input gradients
+stay cuDNN's calls. A function computes only the gradients that the
+running backward pass will use: the engine says so for each input's edge
+(``_will_engine_execute_node``); ``ctx.needs_input_grad`` is fixed at the
+forward and cannot see that the penalty's first-order call or the
+generator update's pass through the critic reads no critic weight.
 Parameters are float32, weights stored as PyTorch's 1-D layouts (conv
 [out, in, k], transposed conv [in, out, k], dense [out, in]);
 ``compute_dtype`` is the convs' and the hidden dense layer's type, the
@@ -53,11 +67,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from gansynth_tpu_torch.kernels.conv1d_wgrad import (
+    KERNEL,
+    LEFT,
+    STRIDE,
+    conv1d_wgrad,
+)
 from gansynth_tpu_torch.utils.config import ModelConfig
 from gansynth_tpu_torch.utils.device import dtype_of
 
 LAYERS = 6      # up- and down-convs a network
-KERNEL, STRIDE = 25, 4
 SLICE_LEN = 65536   # samples a note
 BASE = SLICE_LEN // STRIDE ** LAYERS   # the generator's first length, 16
 SHUFFLED = 4    # critic layers followed by phase shuffle
@@ -76,22 +95,107 @@ def _pad_length(h: torch.Tensor, left: int, right: int) -> torch.Tensor:
         0, 3, 1, 2)
 
 
+def _conv(x, w, b=None):
+    return F.conv2d(_pad_length(x, LEFT, KERNEL - STRIDE - LEFT),
+                    w.unsqueeze(2), b, stride=(1, STRIDE))
+
+
+def _conv_t(gy, w):
+    y = F.conv_transpose2d(gy, w.unsqueeze(2), stride=(1, STRIDE),
+                           padding=(0, LEFT))
+    return y[..., :STRIDE * gy.shape[-1]]
+
+
+def _wanted(ctx, i: int, t: torch.Tensor) -> bool:
+    """Whether the running backward pass uses the gradient of input ``i``
+    (``t``): asked for, and its edge one that the engine will execute."""
+    if not ctx.needs_input_grad[i]:
+        return False
+    node = torch.autograd.graph.get_gradient_edge(t).node
+    try:
+        return torch._C._will_engine_execute_node(node)
+    except RuntimeError as e:
+        # the engine refuses the question for a leaf that autograd.grad()
+        # was asked for: that gradient is used
+        if "leaf node" not in str(e):
+            raise
+        return True
+
+
+class _SameConv(torch.autograd.Function):
+    """``C(x, w) + b``: TF's "SAME" conv, x [B, C_in, 1, 4L] -> [B, C_out,
+    1, L], w [C_out, C_in, 25], b [C_out] or None."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        return _conv(x, w, b)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w, b = ctx.saved_tensors
+        dx = _SameConvT.apply(gy, w) if _wanted(ctx, 0, x) else None
+        dw = _Wgrad.apply(x, gy, "conv") if _wanted(ctx, 1, w) else None
+        db = gy.sum((0, 2, 3)) if _wanted(ctx, 2, b) else None
+        return dx, dw, db
+
+
+class _SameConvT(torch.autograd.Function):
+    """``T(gy, w)``: the input gradient of :class:`_SameConv`, the full
+    transposed conv of gy [B, C_out, 1, L] cropped to [10, 10 + 4L)."""
+
+    @staticmethod
+    def forward(ctx, gy, w):
+        ctx.save_for_backward(gy, w)
+        return _conv_t(gy, w)
+
+    @staticmethod
+    def backward(ctx, ggx):
+        gy, w = ctx.saved_tensors
+        dgy = _SameConv.apply(ggx, w, None) if _wanted(ctx, 0, gy) else None
+        dw = _Wgrad.apply(ggx, gy, "transpose") if _wanted(ctx, 1, w) \
+            else None
+        return dgy, dw
+
+
+class _Wgrad(torch.autograd.Function):
+    """``W(x, gy)``: the weight gradient of :class:`_SameConv`, [C_out,
+    C_in, 25] (K6; ``role`` files its launches)."""
+
+    @staticmethod
+    def forward(ctx, x, gy, role):
+        ctx.save_for_backward(x, gy)
+        return conv1d_wgrad(x, gy, role)
+
+    @staticmethod
+    def backward(ctx, ggw):
+        x, gy = ctx.saved_tensors
+        dx = _SameConvT.apply(gy, ggw) if _wanted(ctx, 0, x) else None
+        dgy = _SameConv.apply(x, ggw, None) if _wanted(ctx, 1, gy) else None
+        return dx, dgy, None
+
+
+def _check_geometry(w: torch.Tensor, stride: int) -> None:
+    if w.shape[-1] != KERNEL or stride != STRIDE:
+        raise ValueError(f"WaveGAN's convs have kernel {KERNEL} and stride "
+                         f"{STRIDE}, got {w.shape[-1]} and {stride}")
+
+
 def same_conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
               stride: int) -> torch.Tensor:
-    """TF's "SAME" strided conv of [B, C_in, 1, L] (w [out, in, k])."""
-    total = w.shape[-1] - stride
-    return F.conv2d(_pad_length(h, total // 2, total - total // 2),
-                    w.unsqueeze(2), b, stride=(1, stride))
+    """TF's "SAME" strided conv of [B, C_in, 1, L] (w [out, in, k]),
+    kernel 25 and stride 4."""
+    _check_geometry(w, stride)
+    return _SameConv.apply(h, w, b)
 
 
 def same_conv_transpose(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                         stride: int) -> torch.Tensor:
     """The gradient of :func:`same_conv` as a layer (w [in, out, k]):
     length L -> stride * L."""
-    total = w.shape[-1] - stride
-    y = F.conv_transpose2d(h, w.unsqueeze(2), b, stride=(1, stride),
-                           padding=(0, total // 2))
-    return y[..., :stride * h.shape[-1]]
+    _check_geometry(w, stride)
+    y = _SameConvT.apply(h, w)
+    return y if b is None else y + b.view(1, -1, 1, 1)
 
 
 def phase_shuffle(h: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:

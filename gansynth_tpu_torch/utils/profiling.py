@@ -225,7 +225,8 @@ def graph_vs_eager(config, generator, stage: int, batch: int,
 PORT_KERNELS = {"synthesis_spectrum": "synthesis_spectrum_gather",
                 "conv3x3": "conv3x3_nhwc_", "dblock": "dblock_nhwc_",
                 "gen_epilogue": "gen_epilogue_",
-                "dblock_grad": "dblock_grad_", "from_rgb": "from_rgb_"}
+                "dblock_grad": "dblock_grad_", "from_rgb": "from_rgb_",
+                "conv1d_wgrad": "conv1d_wgrad_"}
 
 
 def port_kernel(name: str):

@@ -22,7 +22,9 @@ f32 and round once to bf16, whose ulp is 2**-8 of the value). K4 is held
 to the chain it replaces in ulps of the result's type (see its test). K5's
 forward is held to the chain to the bit, its contract and expand kernels
 to their plain versions in ulps, and the critic's penalty gradient
-through it to the critic's float64 one (``ROUTE_MARGIN``).
+through it to the critic's float64 one (``ROUTE_MARGIN``). K6's weight
+gradients are held to the float64 sum of the same bf16 inputs, at most
+``ROUTE_MARGIN`` times as far as cuDNN's bf16 ones.
 """
 
 import dataclasses
@@ -1542,3 +1544,155 @@ def test_a_step_launches_k5_at_both_fromrgbs(cuda_device):
     for part, n in (("from_rgb_fwd_bf16", 8), ("from_rgb_contract_bf16", 12),
                     ("from_rgb_sum_bf16", 12), ("from_rgb_expand_bf16", 2)):
         assert sum(part in name for name in names) == 3 * n, part
+
+
+def _k6_layers(d=64):
+    """(C_in, C_out, L) of the critic's six layers at d, L the conv's output
+    length (the generator's six are the same, mirrored)."""
+    from gansynth_tpu_torch.models import wavegan as wg
+    from gansynth_tpu_torch.utils.config import ModelConfig
+
+    chans = wg.widths(ModelConfig(wavegan_dim=d))
+    return [(chans[i], chans[i + 1], wg.SLICE_LEN // wg.STRIDE ** (i + 1))
+            for i in range(wg.LAYERS)]
+
+
+K6_LAYERS = _k6_layers()   # at the benchmark's d = 64
+
+
+def _k6_inputs(batch, c_in, c_out, length, device, seed=40):
+    """bf16 x [B, C_in, 1, 4L] and gy [B, C_out, 1, L], channels-last."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(
+        torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        for shape in ((batch, c_in, 1, 4 * length),
+                      (batch, c_out, 1, length)))
+
+
+def _cudnn_wgrad(x, gy):
+    """cuDNN's weight gradient of the SAME conv (``F.conv2d``'s backward)
+    in x's type."""
+    from gansynth_tpu_torch.models import wavegan as wg
+
+    w = torch.zeros(gy.shape[1], x.shape[1], 25, dtype=x.dtype,
+                    device=x.device, requires_grad=True)
+    y = torch.nn.functional.conv2d(wg._pad_length(x, 10, 11),
+                                   w.unsqueeze(2), stride=(1, 4))
+    return torch.autograd.grad(y, w, gy)[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [64, 3])
+@pytest.mark.parametrize("layer", K6_LAYERS)
+def test_conv1d_wgrad_meets_the_route_margin(cuda_device, layer, batch):
+    """K6's bf16 weight gradient at each WaveGAN layer's shape, at the
+    benchmark's batch and at 3: its relative L2 error against the float64
+    sum of the same bf16 inputs is at most ROUTE_MARGIN times cuDNN's
+    bf16 weight gradient's. Both sum in float32 and round once to bf16,
+    which dominates either error."""
+    from gansynth_tpu_torch.kernels import conv1d_wgrad as K6
+
+    x, gy = _k6_inputs(batch, *layer, cuda_device)
+    before = launch_counts()
+    got = K6.conv1d_wgrad(x, gy, "conv")
+    assert _since(before)["conv1d_wgrad_conv"] == 1
+    assert got.dtype == torch.bfloat16 and got.shape == (layer[1], layer[0],
+                                                         25)
+    truth = K6.conv1d_wgrad_plain(x.double(), gy.double())
+    err, err_cudnn = _rel_l2(got, truth), _rel_l2(_cudnn_wgrad(x, gy), truth)
+    assert err <= ROUTE_MARGIN * err_cudnn, (
+        f"relative L2 error {err:.4e} > {ROUTE_MARGIN} * cuDNN's "
+        f"{err_cudnn:.4e}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layer", [K6_LAYERS[0], K6_LAYERS[3]])
+def test_a_float32_weight_gradient_takes_cudnn(cuda_device, layer):
+    """K6 has no float32 form: a float32 call on the card (``compute_dtype``
+    float32) takes cuDNN's weight gradient, as every call did before K6,
+    launches no K6, and errs as the built-in backward's does."""
+    from gansynth_tpu_torch.kernels import conv1d_wgrad as K6
+
+    x, gy = (t.float() for t in _k6_inputs(3, *layer, cuda_device))
+    before = launch_counts()
+    got = K6.conv1d_wgrad(x, gy, "conv")
+    assert not any(_since(before)[k] for k in ("conv1d_wgrad_conv",
+                                               "conv1d_wgrad_transpose"))
+    assert got.dtype == torch.float32
+    truth = K6.conv1d_wgrad_plain(x.double(), gy.double())
+    err, err_builtin = _rel_l2(got, truth), _rel_l2(_cudnn_wgrad(x, gy),
+                                                    truth)
+    assert err <= ROUTE_MARGIN * err_builtin + 1e-6, (err, err_builtin)
+
+
+@pytest.mark.gpu
+def test_conv1d_wgrad_graph_replays_are_bit_equal(cuda_device):
+    """K6 captured in a CUDA graph at three shapes (the wgmma kernel with
+    split partials, the C_in = 1 kernel, the wgmma kernel unsplit) gives
+    an eager call's bits at every replay: the partials are added in a
+    fixed order, without atomics."""
+    from gansynth_tpu_torch.kernels import conv1d_wgrad as K6
+    from gansynth_tpu_torch.utils import graphs
+
+    for layer in (K6_LAYERS[2], K6_LAYERS[0], K6_LAYERS[5]):
+        x, gy = _k6_inputs(64, *layer, cuda_device, seed=41)
+        eager = K6.conv1d_wgrad(x, gy, "conv")
+        graph = graphs.Graph(lambda: K6.conv1d_wgrad(x, gy, "conv"),
+                             cuda_device)
+        for _ in range(2):
+            assert torch.equal(graph.replay(), eager), layer
+
+
+@pytest.mark.gpu
+def test_a_wavegan_step_takes_its_weight_gradients_through_k6(cuda_device):
+    """A graphed WaveGAN step at d = 8, batch 2, bf16: the launch record
+    adds 90 ``conv`` and 36 ``transpose`` K6 calls a replay, and a
+    profiler trace of the replay shows 252 ``conv1d_wgrad_`` kernels (a
+    call and its splits' sum) and no cuDNN ``wgrad_alg1`` kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gansynth_tpu_torch.models import wavegan as wg
+    from gansynth_tpu_torch.train.state import (
+        TrainState,
+        make_optimizer,
+        train_key,
+    )
+    from gansynth_tpu_torch.train.step import make_cached_superstep
+    from gansynth_tpu_torch.utils.config import Config
+
+    cfg = Config().with_overrides({
+        "model": {"architecture": "wavegan", "wavegan_dim": 8,
+                  "latent_dim": 16, "compute_dtype": "bfloat16"},
+        "train": {"critic_updates": 5, "batch_size": 2, "unroll": 1}})
+    nets = [wg.WaveGANGenerator(cfg.model), wg.WaveGANDiscriminator(
+        cfg.model), wg.WaveGANGenerator(cfg.model)]
+    for i, net in enumerate(nets):
+        wg.init_wavegan(net, (i, 3))
+        net.to(cuda_device)
+    g, d, ema = nets
+    for p in ema.parameters():
+        p.requires_grad_(False)
+    state = TrainState(g=g, d=d, ema=ema,
+                       g_opt=make_optimizer(cfg, g.parameters()),
+                       d_opt=make_optimizer(cfg, d.parameters()),
+                       rng=train_key(4))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    waves = 0.3 * torch.randn(8, 64000, generator=gen, device=cuda_device)
+    pitches = torch.randint(24, 85, (8,), generator=gen,
+                            device=cuda_device, dtype=torch.int32)
+    superstep = make_cached_superstep(cfg, 0, 8)
+    state, _ = superstep(state, waves, pitches, [1.0])   # the capture
+    torch.cuda.synchronize()
+    keys = ("conv1d_wgrad_conv", "conv1d_wgrad_transpose")
+    before = launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        superstep(state, waves, pitches, [1.0])
+        torch.cuda.synchronize()
+    assert {k: launch_counts()[k] - before[k] for k in keys} == dict(
+        zip(keys, (90, 36)))
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("conv1d_wgrad_" in n for n in names) == 2 * 126
+    assert not any("wgrad_alg1" in n for n in names)

@@ -40,8 +40,9 @@ CPU (``gansynth_tpu_torch/utils/graphs.py``, ``train/step.py``).
   (``kernels.count``, keyed by kernel, role and shape) is taken back at
   a capture and added at every replay, one delta, so its views
   (``launch_counts``, ``launch_shapes``, ``gen_epilogue_shapes``) count
-  the replays; ``launch_counts`` keeps its fifteen names, the views their
-  keys (K5's launches in neither shape view), and threads that count at once lose no launch.
+  the replays; ``launch_counts`` keeps its seventeen names, the views
+  their keys (K5's and K6's launches in neither shape view), and threads
+  that count at once lose no launch.
 """
 
 import os
@@ -272,7 +273,8 @@ NAMES = {"conv3x3_forward", "conv3x3_input_grad", "conv3x3_recompute",
          "dblock_backward_plain", "synthesis_spectrum",
          "gen_epilogue_forward", "gen_epilogue_backward",
          "gen_epilogue_recompute", "from_rgb_forward", "from_rgb_contract",
-         "from_rgb_expand", "from_rgb_recompute"}
+         "from_rgb_expand", "from_rgb_recompute", "conv1d_wgrad_conv",
+         "conv1d_wgrad_transpose"}
 # case -> (program, a view of the record, the view's launches a call, the
 # record's launches a call)
 BOOKKEEPING = {
@@ -317,11 +319,11 @@ def test_graph_bookkeeping(simulated, case):
 
 def test_launch_record_contract():
     """``kernels.count`` files a launch under its role, or under
-    ``"recompute"`` inside ``recomputing()``, for each of the five
+    ``"recompute"`` inside ``recomputing()``, for each of the six
     kernels, and ``launch_counts`` names both; ``launch_counts`` has the
-    fifteen names, and ``launch_shapes`` and ``gen_epilogue_shapes`` the
-    key tuples that the benchmark's readers take, K5's launches in
-    neither."""
+    seventeen names, and ``launch_shapes`` and ``gen_epilogue_shapes`` the
+    key tuples that the benchmark's readers take, K5's and K6's launches
+    in neither."""
     # kernel -> (shape, role, launch_counts' names of the role and of its
     # recompute)
     cases = {"conv3x3": ((8, 64, 512, 128, 256), "input_grad",
@@ -334,7 +336,10 @@ def test_launch_record_contract():
                               "gen_epilogue_backward",
                               "gen_epilogue_recompute"),
              "from_rgb": ((8, 128, 1024, 64), "contract",
-                          "from_rgb_contract", "from_rgb_recompute")}
+                          "from_rgb_contract", "from_rgb_recompute"),
+             "conv1d_wgrad": ((64, 16, 1024, 2048), "transpose",
+                              "conv1d_wgrad_transpose",
+                              "conv1d_wgrad_recompute")}
     saved = record()
     add({k: -v for k, v in saved.items()})   # from an empty record
     try:
@@ -541,9 +546,9 @@ def test_on_device_is_eager_off_a_card():
 def test_traced_kernel_names_map_to_the_port_kernels():
     """``profiling.port_kernel`` maps the device functions of
     ``kernels/csrc`` (as a trace names them: demangled, with template
-    arguments, or mangled) to K1/K2/K3/K4/K5 and K3's backward kernels, and
-    nothing else to any: the step's mark kernels are none of them, and no
-    backward kernel is K3's forward."""
+    arguments, or mangled) to K1/K2/K3/K4/K5/K6 and K3's backward
+    kernels, and nothing else to any: the step's mark kernels are none of
+    them, and no backward kernel is K3's forward."""
     import re
 
     from gansynth_tpu_torch.utils import profiling
@@ -570,6 +575,8 @@ def test_traced_kernel_names_map_to_the_port_kernels():
                      **{f"from_rgb_{fn}_{t}": "from_rgb"
                         for fn in ("fwd", "contract", "expand", "sum")
                         for t in ("bf16", "f32")},
+                     **{f"conv1d_wgrad_{fn}": "conv1d_wgrad"
+                        for fn in ("wgmma", "narrow", "finish")},
                      **{f"step_mark_{m}": None for m in (
                          "start", "frontend", "critic", "generator",
                          "end", "anchor")}}

@@ -27,10 +27,11 @@ def csrc(tmp_path, monkeypatch):
 
 
 _HEADERS = {"conv3x3": ["hopper.cuh"],
-            "dblock": ["dblock_mask.cuh", "hopper.cuh"]}
+            "dblock": ["dblock_mask.cuh", "hopper.cuh"],
+            "conv1d_wgrad": ["hopper.cuh"]}
 
 
-@pytest.mark.parametrize("name", ["conv3x3", "dblock"])
+@pytest.mark.parametrize("name", ["conv3x3", "dblock", "conv1d_wgrad"])
 def test_key_covers_the_shared_header(csrc, name):
     assert [h.name for h in _build.included_headers(csrc / f"{name}.cu")] \
         == _HEADERS[name]
